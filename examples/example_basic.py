@@ -1,6 +1,6 @@
 """Basic SISO OFDM example: QPSK, 1.25 MHz (128-pt FFT), AWGN BER sweep.
 
-The TPU-native equivalent of the reference's examples/example_basic.py
+The JAX equivalent of the reference's examples/example_basic.py
 workload (BASELINE.json config #1).
 
 Run: python examples/example_basic.py

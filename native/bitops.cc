@@ -1,6 +1,6 @@
 // Native host-side data-path kernels for ofdm_lte_tpu.
 //
-// The TPU owns the compute path (JAX/XLA); this library owns the host data
+// The device owns the compute path (JAX/XLA); this library owns the host data
 // path that feeds it: bit (un)packing for the image/transport-block
 // pipelines and table-driven CRC over megabit messages (the reference does
 // both with per-bit Python big-int arithmetic,

@@ -1,7 +1,8 @@
-"""ofdm_lte_tpu — a TPU-native LTE physical-layer simulation framework.
+"""ofdm_lte_tpu — an LTE physical-layer simulation framework in JAX.
 
-Built from scratch in JAX/XLA for TPU (complex-as-real-pairs, DFT-as-matmul on
-the MXU, batched Monte-Carlo over device meshes). Provides the capabilities of
+Built from scratch in JAX/XLA (complex-as-real-pairs, DFT-as-matmul, batched
+Monte-Carlo over device meshes) and run on NVIDIA GPUs. Provides the
+capabilities of
 the reference NumPy simulator (Darioxavierl/OFDM-LTE): OFDM/SC-FDM modems with
 LTE resource grids and CRS pilots, AWGN / ITU-R M.1225 Rayleigh channels,
 CRS estimation + ZF/MRC/Alamouti/MIMO detection, TM4/TM6 precoding with CSI

@@ -1,6 +1,6 @@
 """MIMO channel legs: per-(tx, rx)-link fading + one noise injection per RX.
 
-TPU-native replacement for the reference's per-link channel objects:
+Batched replacement for the reference's per-link channel objects:
 
 - transmit_mimo (/root/reference/core/ofdm_core.py:434-543):
   * 'awgn' mode: fixed unit taps with 90°/TX phase separation
@@ -33,12 +33,12 @@ from .rayleigh import (MultipathProfile, apply_multipath, flat_mimo_matrix,
 
 
 def _mix_links(H: C, signals_tx: C, num_rx: int) -> C:
-    """y[rx] = Σ_tx H[..., rx, tx] · x[tx] as static-loop VPU FMAs.
+    """y[rx] = Σ_tx H[..., rx, tx] · x[tx] as static-loop elementwise FMAs.
 
     H: (rx, tx) constant or (lanes..., rx, tx); signals_tx: (tx, lanes..., T)
-    -> (rx, lanes..., T). An einsum here lowers to batched (rx×tx) matmuls
-    padded to MXU tiles; with rx, tx ≤ 8 the unrolled elementwise form fuses
-    into one VPU kernel with no padding and no materialized temporaries."""
+    -> (rx, lanes..., T). An einsum here lowers to batched tiny (rx×tx)
+    matmuls; with rx, tx ≤ 8 the unrolled elementwise form fuses into one
+    elementwise kernel with no materialized temporaries."""
     num_tx = signals_tx.shape[0]
     per_link_ndim = signals_tx.ndim - 1      # lanes... + T
     ys = []
@@ -132,7 +132,7 @@ def transmit_mimo(key, signals_tx: C, snr_db, num_rx: int, channel_type: str,
         phases = np.exp(1j * np.arange(num_tx) * np.pi / 2)      # (num_tx,)
         H = np.tile(phases[None, :], (num_rx, 1))
         Hc = cplx.const(H)
-        # y_rx = Σ_tx h[rx,tx]·x_tx : contract over tx axis (VPU FMAs)
+        # y_rx = Σ_tx h[rx,tx]·x_tx : contract over tx axis (FMAs)
         y = _mix_links(Hc, signals_tx, num_rx)
     else:
         # independent multipath fading per (rx, tx) link, no noise yet
@@ -180,7 +180,7 @@ def spatial_mix_noiseless(key, signals_tx: C, snr_db, num_rx: int,
         H = cplx.cones(lanes + (num_rx, num_tx))
     else:
         H = flat_mimo_matrix(key, num_rx, num_tx, lanes)          # (..., rx, tx)
-        # y[rx, ..., t] = Σ_tx H[..., rx, tx] · x[tx, ..., t] (VPU FMAs)
+        # y[rx, ..., t] = Σ_tx H[..., rx, tx] · x[tx, ..., t] (FMAs)
         y = _mix_links(H, signals_tx, num_rx)
 
     snr_lin = 10.0 ** (jnp.asarray(snr_db, jnp.float32) / 10.0)

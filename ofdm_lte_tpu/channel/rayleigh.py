@@ -1,6 +1,6 @@
 """Rayleigh fading channels: Jakes sum-of-sinusoids + ITU multipath FIR.
 
-TPU-native reformulation of /root/reference/core/rayleighchannel.py and
+Batched reformulation of /root/reference/core/rayleighchannel.py and
 core/channel.py:83-245:
 
 - Jakes fading h(t) = √(2/Ns)·Σ_n exp(j(2π f_D cos(α_n) t + φ_n)) with
@@ -121,18 +121,16 @@ def jakes_taps(key: jax.Array, profile: MultipathProfile, num_samples: int,
 
 def _tap_hold(T: int, profile: MultipathProfile) -> int:
     """Tap-hold granularity: generate Jakes taps every `hold` samples and
-    hold inside the block. OFDM_LTE_TPU_TAP_HOLD = "1" (exact, per-sample
-    — the float-faithful arbiter and the CPU default) | "auto" (TPU
-    default) | an integer. "auto" picks the largest divisor of T with
-    fd·hold/fs <= 2% — the channel then moves >= 50x finer than its own
-    coherence time, FAR finer than the receiver's slot-constant CRS
-    assumption — capped at 4096. Eliminates the (links·taps, T)
-    tap-waveform HBM write + re-read that dominates the channel-FIR cost
-    model (measured A/B: tools/probe_tap_hold.py / VALIDATION.md)."""
+    hold inside the block. OFDM_LTE_TPU_TAP_HOLD = "1" (default: exact,
+    per-sample — the float-faithful arbiter) | "auto" | an integer. "auto"
+    picks the largest divisor of T with fd·hold/fs <= 2% — the channel then
+    moves >= 50x finer than its own coherence time, FAR finer than the
+    receiver's slot-constant CRS assumption — capped at 4096. It removes
+    the (links·taps, T) tap-waveform write and re-read from device memory;
+    on the GPU it measured faster for SIMO and slower for SFBC (PERF.md),
+    so it is opt-in."""
     import os
-    mode = os.environ.get("OFDM_LTE_TPU_TAP_HOLD", "").lower()
-    if not mode:
-        mode = "auto" if jax.default_backend() == "tpu" else "1"
+    mode = os.environ.get("OFDM_LTE_TPU_TAP_HOLD", "1").lower()
     if mode != "auto":
         return max(1, int(mode))
     fd = max(profile.doppler_hz, 1e-3)
@@ -157,8 +155,8 @@ def apply_multipath(key: jax.Array, x: C, profile: MultipathProfile,
         hold = _tap_hold(T, profile)
     if hold > 1 and T % hold:
         # A manual hold (env var or argument) that does not divide T would
-        # crash below at the (Tg, hold) reshape with an opaque shape error
-        # (ADVICE r4); round DOWN to the largest divisor of T instead —
+        # crash below at the (Tg, hold) reshape with an opaque shape error;
+        # round DOWN to the largest divisor of T instead —
         # "auto" always returns a divisor, so this only triggers for
         # manual values.
         hold = next(h for h in range(min(hold, T), 0, -1) if T % h == 0)

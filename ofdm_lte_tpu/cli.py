@@ -738,10 +738,7 @@ def build_parser():
                     help="process each SNR point's frames in knee-sized "
                          "chunks: an int unrolls chunks of that size; "
                          "'auto' applies the measured per-pipeline policy "
-                         "(unroll for sfbc/simo, sequential scan for "
-                         "coded, flat otherwise; "
-                         "parallel.chunking.auto_chunk, "
-                         "results/cliff_probe.json)")
+                         "(parallel.chunking.auto_chunk)")
     sp.add_argument("--snr-shards", type=int, default=1, dest="snr_shards",
                     help="shard SNR points across this many mesh rows "
                          "(2-D snr x mc mesh; must divide device count)")
@@ -804,7 +801,9 @@ def build_parser():
 
 
 def main(argv=None):
+    from .utils.device import enable_compile_cache
     args = build_parser().parse_args(argv)
+    enable_compile_cache()
     args.fn(args)
 
 

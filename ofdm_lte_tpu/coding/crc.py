@@ -8,7 +8,7 @@ message (crc.py:89-134); here:
   lookups instead of O(n) Python big-int steps;
 - in-graph path: CRC is GF(2)-linear, so for a static message length n the
   checksum is (bits @ M) mod 2 with a precomputed (n, nbits) 0/1 matrix —
-  one f32 matmul on the MXU (exact: row sums < 2^24).
+  one f32 matmul (exact: row sums < 2^24).
 """
 from __future__ import annotations
 

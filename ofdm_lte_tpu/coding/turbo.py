@@ -1,7 +1,7 @@
 """LTE rate-1/3 turbo codec (TS 36.212 §5.1.3): QPP interleaver, scan-based
 RSC encoders, batched max-log BCJR decoding.
 
-TPU-native reformulation of /root/reference/core/channel_coding/
+Batched reformulation of /root/reference/core/channel_coding/
 turbo_encoder.py and turbo_decoder.py:
 
 - QPP permutation π(i) = (f1·i + f2·i²) mod K with the full 188-entry (f1,f2)
@@ -252,13 +252,12 @@ def _bcjr(llr_sys: jnp.ndarray, llr_par: jnp.ndarray,
     log-sum-exp — the reference's True-Log-MAP mode (max_star,
     turbo_decoder.py:92-115).
 
-    impl: 'block' — blocked scan decomposition (the TPU default). The
+    impl: 'block' — blocked scan decomposition (the GPU default). The
           recursion α_{k+1} = T_k ⊗ α_k is linear over the (max,+)/(LSE,+)
           semiring but LATENCY-bound when run step-by-step: per-step work is
-          a (batch, 16) gather+add+reduce, far below the VPU's width, so
-          wall-clock ≈ sequential-op count × fixed issue overhead (measured
-          2026-08-20: the 'scan' impl costs ~0.76 µs per trellis step
-          regardless of batch ≤64). 'block' cuts the sequential depth ~16×:
+          a (batch, 16) gather+add+reduce, far too small to fill the device,
+          so wall-clock ≈ sequential-op count × fixed per-step overhead.
+          'block' cuts the sequential depth ~16×:
           (1) chunk the trellis into C blocks of L=64 steps and tree-reduce
           each block's 8×8 max-plus transition-matrix product in log2(L)
           fully parallel levels; (2) propagate block-boundary α/β VECTORS
@@ -275,22 +274,19 @@ def _bcjr(llr_sys: jnp.ndarray, llr_par: jnp.ndarray,
           work, float-faithful to the reference's recursion order).
           'assoc' — α/β as full max-plus matrix prefix products via
           jax.lax.associative_scan (O(log K') depth). ~32× the arithmetic of
-          'scan' and measured 8× slower than it on the real chip (8×8
-          matrix-product HBM traffic + the non-power-of-2 odd/even
-          recursion); kept as a reference kernel for the prefix-product
-          algebra.
-    Defaults from OFDM_LTE_TPU_BCJR, else 'block' on TPU and 'scan'
+          'scan'; kept as a reference kernel for the prefix-product algebra.
+    Defaults from OFDM_LTE_TPU_BCJR, else 'block' on the GPU and 'scan'
     elsewhere (identical hard decisions across all three on realistic
     inputs; 'scan' is the float-faithful arbiter). On CPU the sequential
     scans are compact HLO and XLA:CPU runs them well, while 'block''s
-    unrolled phase-2/3 loops cost real compile time — the split default
-    keeps the CPU test suite fast and the TPU throughput path fast.
+    unrolled phase-2/3 loops cost real compile time; PERF.md holds the card
+    A/B behind the GPU default.
     """
     if impl is None:
         import os
         impl = os.environ.get("OFDM_LTE_TPU_BCJR")
         if impl is None:
-            impl = "block" if jax.default_backend() == "tpu" else "scan"
+            impl = "block" if jax.default_backend() == "gpu" else "scan"
     ns_t, sys_t, par_t = trellis_tables()
     ps_t, pi_t = reverse_trellis()
     ns = jnp.asarray(ns_t)
@@ -377,10 +373,8 @@ def _bcjr(llr_sys: jnp.ndarray, llr_par: jnp.ndarray,
         # sequential part, C ≈ K'/L steps of (…, 8) matrix-vector products.
         # β reuses M transposed: β_{cL} = M_cᵀ ⊗ β_{(c+1)L}. Deliberately a
         # trace-unrolled Python loop, NOT a lax.scan: the per-step scan
-        # machinery costs far more than these tiny ops (measured 2026-08-20,
-        # 128-lane coded chain: 80 ms/step unrolled vs 214 ms scanified),
-        # and the block impl only runs on TPU where the one-off compile cost
-        # of the unrolled HLO (~2-5 min, persistently cached) is acceptable.
+        # machinery costs far more than these tiny ops, and the one-off
+        # compile cost of the unrolled HLO is paid once per shape.
         av, bv = [a0], [bK]
         for c in range(nC - 1):
             av.append(_reduce(M[c] + av[-1][..., None, :], -1, use_max_log))

@@ -1,4 +1,4 @@
-"""Static LTE configuration for the TPU-native PHY framework.
+"""Static LTE configuration for the PHY framework.
 
 Mirrors the reference's parameter derivations exactly so BER/throughput
 comparisons run the same waveforms:

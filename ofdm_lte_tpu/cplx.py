@@ -1,18 +1,17 @@
-"""Complex arithmetic as real pairs — the TPU-native complex representation.
+"""Complex arithmetic as real pairs.
 
-TPUs have no native complex ALU: XLA lowers complex ops to pairs of real ops,
-and the backend used here exposes no complex dtype at all. We therefore make
-the struct-of-arrays representation explicit: a complex tensor is a `C`
-NamedTuple of two float32 arrays (re, im). This is a JAX pytree, so it flows
-through jit / vmap / scan / shard_map unchanged, and every operation below maps
-onto VPU elementwise lanes or MXU matmuls.
+A complex tensor is a `C` NamedTuple of two float32 arrays (re, im) — an
+explicit struct-of-arrays representation. This is a JAX pytree, so it flows
+through jit / vmap / scan / shard_map unchanged, and every operation below
+maps onto real elementwise work or real matmuls. (Whether complex64 and
+jnp.fft serve the GPU better is ROADMAP design debt 3.2.)
 
 Complex matmul is expanded into real matmuls. Two forms are provided: the
 straightforward 4-multiply form (`matmul`, the default — fully parallel dots,
 no extra elementwise traffic) and the 3-multiply Gauss/Karatsuba form
-(`matmul_gauss`, −25% MXU FLOPs at the cost of two operand adds and a longer
+(`matmul_gauss`, −25% matmul FLOPs at the cost of two operand adds and a longer
 dependency chain; selectable in the modem via OFDM_LTE_TPU_CMATMUL=gauss —
-see ops/ofdm._cmm and bench.py's backend comparison).
+see ops/ofdm._cmm).
 
 This module replaces NumPy complex arrays used throughout the reference
 (e.g. /root/reference/core/modulator.py:78, core/channel.py:56-60).
@@ -159,7 +158,7 @@ def expi(theta: jnp.ndarray) -> C:
 # ---------------------------------------------------------------------------
 
 def matmul(a: C, b: C, precision=None) -> C:
-    """Complex matmul as 4 real MXU matmuls. preferred_element_type=f32."""
+    """Complex matmul as 4 real matmuls. preferred_element_type=f32."""
     f32 = jnp.float32
     rr = jnp.matmul(a.re, b.re, precision=precision, preferred_element_type=f32)
     ii = jnp.matmul(a.im, b.im, precision=precision, preferred_element_type=f32)
@@ -174,9 +173,9 @@ def matmul_gauss(a: C, b: C, precision=None) -> C:
         t1 = ar·br, t2 = ai·bi, t3 = (ar+ai)·(br+bi)
         C  = (t1 − t2) + j·(t3 − t1 − t2)
 
-    One fewer MXU matmul than `matmul` (−25% FLOPs) in exchange for two
-    operand-sized adds and three result-sized adds on the VPU. Wins when the
-    matmul is MXU-bound (large K, HIGHEST-precision f32 passes); numerically
+    One fewer real matmul than `matmul` (−25% FLOPs) in exchange for two
+    operand-sized adds and three result-sized adds. Can win when the
+    matmul is compute-bound (large K, HIGHEST-precision f32); numerically
     the imaginary part carries one extra rounding of magnitude ~|t1|+|t2|.
     When `b` is a trace-time constant (the modem's DFT matrices), XLA
     constant-folds br+bi so only the `a` add costs anything per call."""
@@ -204,14 +203,13 @@ def matmul_cr(a: C, b_real: jnp.ndarray, precision=None) -> C:
 
 def matmul_small(a: C, b: C) -> C:
     """Batched complex matmul for TINY matrices (contraction dim ≤ ~8) as a
-    VPU broadcast-multiply-sum instead of an MXU dot.
+    broadcast-multiply-sum instead of a dot.
 
     a (..., M, K) @ b (..., K, N) -> (..., M, N). The MIMO stack's per-
     subcarrier matrices are 1x1..4x4 batched over millions of subcarriers;
-    lowering those through dot_general pads each operand to 128x128 MXU
-    tiles (>95% wasted lanes) and measured ~25x slower than the whole SISO
-    pipeline. Expanding the contraction as elementwise FMAs keeps the work
-    on the VPU at full lane utilization. Leading batch dims broadcast."""
+    expanding the contraction as elementwise FMAs keeps them in fused
+    elementwise kernels instead of millions of tiny batched dots. Leading
+    batch dims broadcast."""
     ar, ai = a.re[..., :, :, None], a.im[..., :, :, None]   # (..., M, K, 1)
     br, bi = b.re[..., None, :, :], b.im[..., None, :, :]   # (..., 1, K, N)
     re = jnp.sum(ar * br - ai * bi, axis=-2)
@@ -263,7 +261,7 @@ def take(x: C, idx, axis=0) -> C:
 
 
 def _matvec(a: C, v: C) -> C:
-    """(..., m, n) @ (..., n) -> (..., m) without MXU dispatch (tiny dims)."""
+    """(..., m, n) @ (..., n) -> (..., m) as elementwise FMAs (tiny dims)."""
     prod = a * C(v.re[..., None, :], v.im[..., None, :])
     return prod.sum(axis=-1)
 
@@ -291,7 +289,7 @@ def solve(a: C, b: C) -> C:
     """Solve A x = b for complex A, batched over leading dims.
 
     For the small systems the MIMO detectors produce (n ≤ 2) a closed-form
-    inverse runs entirely on the VPU (no LU factorization, orders of
+    inverse runs as elementwise work (no LU factorization, orders of
     magnitude faster for millions of tiny batched systems). Larger n falls
     back to the real 2N×2N block embedding
     [[Ar, -Ai], [Ai, Ar]] @ [xr; xi] = [br; bi] through jnp.linalg.solve.
@@ -319,7 +317,7 @@ def solve(a: C, b: C) -> C:
         pad_b = pad(b, [(0, 0)] * (b.ndim - 1) + [(0, 1)])
         return solve(eye_fix, pad_b)[..., :3]
     if n == 4 and b.ndim == a.ndim - 1:
-        # 2x2-blockwise Schur complement, all closed form on the VPU
+        # 2x2-blockwise Schur complement, all closed form, elementwise
         A = a[..., 0:2, 0:2]
         B = a[..., 0:2, 2:4]
         Cm = a[..., 2:4, 0:2]

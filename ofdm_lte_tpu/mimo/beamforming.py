@@ -4,8 +4,8 @@ Replaces /root/reference/core/beamforming_precoder.py:
 
 - MRT: W = conj(h̄)/‖h̄‖ with h̄ the RX-averaged channel row (lines 41-66)
 - eigenbeamforming: dominant eigenvector of HᴴH (lines 68-92), computed on
-  TPU via the real 2n×2n symmetric block embedding + jnp.linalg.eigh (the
-  backend has no complex eig)
+  via the real 2n×2n symmetric block embedding + jnp.linalg.eigh (complex
+  numbers are real pairs here, cplx.C)
 - apply_precoding x = W @ s (lines 94-125)
 - beamforming gain ‖HW‖²/(‖H‖²_F/num_tx) in dB (lines 173-199)
 - adaptive update period from the 90% coherence time T_c = 9/(16π f_D),

@@ -29,9 +29,8 @@ from ..ops import qam
 def _gram(H: C) -> C:
     """HᴴH for H (..., rx, L) -> (..., L, L).
 
-    VPU path: these are (≤4×≤4) matrices batched over millions of
-    subcarriers — dot_general would pad each to MXU tiles (measured ~25x
-    slowdown of the whole spatial pipeline, see cplx.matmul_small)."""
+    Elementwise path: these are (≤4×≤4) matrices batched over millions of
+    subcarriers (see cplx.matmul_small)."""
     Hh = C(H.re.swapaxes(-1, -2), -H.im.swapaxes(-1, -2))
     return cplx.matmul_small(Hh, H)
 
@@ -53,7 +52,7 @@ def _add_diag(A: C, d) -> C:
 
 def effective_channel(H: C, W: C) -> C:
     """H_eff = H @ W (mimo_detector.py:109-114). H (..., rx, tx),
-    W (tx, L) or (..., tx, L) — leading dims broadcast (VPU path)."""
+    W (tx, L) or (..., tx, L) — leading dims broadcast (elementwise path)."""
     return cplx.matmul_small(H, W)
 
 
@@ -62,10 +61,8 @@ def _mmse2_fused(y: C, H_eff: C, s2) -> C:
     is [[a, b], [b̄, d]] (a, d real), ŝ = G⁻¹Hᴴy via the 2×2 adjugate —
     direct scalar formulas on the h-column planes. Agrees with the generic
     gram+solve path to ~2e-6 (inside the 1e-4 reference-parity tolerance)
-    and measured 14% faster at the spatial pipeline's batch shape
-    (4411 → 3783 µs/step isolated, tools/probe_detector_fused.py
-    2026-08-21) — the gram/solve chain's (batch, 2, 2) HBM temporaries
-    are the detector stage's hotspot."""
+    and writes none of the gram/solve chain's (batch, 2, 2) temporaries to
+    device memory."""
     h0 = C(H_eff.re[..., 0], H_eff.im[..., 0])      # (..., rx)
     h1 = C(H_eff.re[..., 1], H_eff.im[..., 1])
     if jnp.ndim(s2):
@@ -393,7 +390,7 @@ def mmse_unbiased(y: C, H_eff: C, sigma2) -> C:
     s2 = _align_sigma(sigma2, H_eff)
     G = _add_diag(_gram(H_eff), s2)
     s_hat = cplx.solve(G, _Hh_y(H_eff, y))
-    # diag of (G+σ²I)⁻¹ via L unit-vector solves (L ≤ 4, VPU closed form);
+    # diag of (G+σ²I)⁻¹ via L unit-vector solves (L ≤ 4, closed form);
     # Hermitian PD => diagonal is real positive
     batch = H_eff.shape[:-2]
     d = []

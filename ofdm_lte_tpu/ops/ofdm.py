@@ -1,7 +1,7 @@
-"""OFDM modulation/demodulation as fused MXU matmuls.
+"""OFDM modulation/demodulation as fused complex matmuls.
 
-TPU-first design: the 128–2048-pt (I)DFTs are expressed as batched matrix
-multiplies against precomputed DFT submatrices instead of an FFT call —
+The 128–2048-pt (I)DFTs are expressed as batched matrix multiplies against
+precomputed DFT submatrices instead of an FFT call —
 
 - the grid scatter (data bins + pilot bins + DC/guard nulls,
   /root/reference/core/resource_mapper.py:181-223), the IFFT·√N
@@ -20,20 +20,16 @@ multiplies against precomputed DFT submatrices instead of an FFT call —
       bins[s, k] = Σ_t  y[s, t] · G[k, t],   G = exp(-2πi·k·t/N)/√N
   replacing CP strip + np.fft.fft/√N (/root/reference/core/lte_receiver.py:484-487).
 
-A complex matmul runs as 4 real f32 MXU matmuls (see cplx.matmul). For the
-sizes involved (N ≤ 2048, thousands of symbols per batch) this beats an FFT
-network on the MXU and — on this backend, which exposes no FFT primitive —
-it is also the only option. Matmul precision follows the process-level
-policy in ofdm_lte_tpu.precision (supported default: single-pass bf16,
-measured BER-identical to the f32 `highest` parity mode — see that module's
-docstring for the measured deltas).
+A complex matmul runs as 4 real f32 matmuls (see cplx.matmul), or 3 in the
+Gauss form. Whether an FFT on complex64 beats this dense form on the GPU is
+ROADMAP item 1.6; PERF.md holds the card timings. Matmul precision follows
+the process-level policy in ofdm_lte_tpu.precision.
 """
 from __future__ import annotations
 
 import functools
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from .. import cplx
@@ -47,51 +43,17 @@ from ..precision import matmul_precision
 def _cmm(a: C, b: C) -> C:
     """Complex matmul for the modem.
 
-    Backend selected by OFDM_LTE_TPU_CMATMUL ∈ {xla4, gauss, pallas,
-    pallas_gauss}; the legacy OFDM_LTE_TPU_PALLAS=1 switch still selects
-    the Pallas kernel. `gauss` variants use the 3-multiply Gauss/Karatsuba
-    form (−25% MXU FLOPs, see cplx.matmul_gauss). Default: `gauss` on TPU
-    (measured 191,117 vs 177,709 frames/s on the 20 MHz 64-QAM headline,
-    2026-08-21, BER-equivalent — the reassociation is the same class of
-    rounding change as the bf16 precision policy), `xla4` elsewhere (the
-    float-faithful form the CPU parity suite runs). The `highest` f32
-    parity mode also defaults to `xla4` on TPU: that mode exists to
-    reproduce the float-faithful arbiter on-chip, and the Gauss
-    reassociation would silently change its rounding."""
+    OFDM_LTE_TPU_CMATMUL selects the form: `xla4` (default, the four-product
+    expansion of cplx.matmul) or `gauss` (the 3-multiply Gauss/Karatsuba
+    form of cplx.matmul_gauss, −25% matmul FLOPs for two operand adds)."""
     import os
-    from . import pallas_kernels
-    from ..precision import matmul_precision_name
-    backend = os.environ.get("OFDM_LTE_TPU_CMATMUL", "").lower()
-    if not backend:
-        if pallas_kernels.pallas_enabled():
-            backend = "pallas"
-        elif (jax.default_backend() == "tpu"
-              and matmul_precision_name() != "highest"):
-            backend = "gauss"
-        else:
-            backend = "xla4"
-
-    # OFDM_LTE_TPU_FLATTEN_MM=1 flattens leading batch dims into the GEMM
-    # M dimension before the matmul. MEASURED AND REJECTED as the default
-    # (tools/probe_flatten_mm.py, 2026-08-21): at the 1024-lane spatial
-    # shape the flattened (28672, 500)@(500, 2192) GEMM runs 23.4 ms/step
-    # vs 15.4 ms for the native (lanes, S, tx, m) batched form — 0/4
-    # pairwise wins; this backend tiles the batched dot BETTER than the
-    # tall flat GEMM. Knob kept for future backends.
-    lead = a.shape[:-1]
-    flatten = len(lead) > 1 and os.environ.get(
-        "OFDM_LTE_TPU_FLATTEN_MM", "0") == "1"
-    if flatten:
-        a = a.reshape((-1, a.shape[-1]))
-    if backend in ("pallas", "pallas_gauss"):
-        out = pallas_kernels.cmatmul(a, b, gauss=(backend == "pallas_gauss"))
-    elif backend == "gauss":
-        out = cplx.matmul_gauss(a, b, precision=matmul_precision())
-    else:
-        out = cplx.matmul(a, b, precision=matmul_precision())
-    if flatten:
-        out = out.reshape(lead + (out.shape[-1],))
-    return out
+    backend = os.environ.get("OFDM_LTE_TPU_CMATMUL", "xla4").lower()
+    if backend == "gauss":
+        return cplx.matmul_gauss(a, b, precision=matmul_precision())
+    if backend != "xla4":
+        raise ValueError(
+            f"OFDM_LTE_TPU_CMATMUL={backend!r}; pick from ['xla4', 'gauss']")
+    return cplx.matmul(a, b, precision=matmul_precision())
 
 
 @functools.lru_cache(maxsize=None)

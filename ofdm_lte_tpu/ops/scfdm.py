@@ -1,10 +1,10 @@
-"""SC-FDM DFT precoding / decoding as MXU matmuls.
+"""SC-FDM DFT precoding / decoding as matmuls.
 
 Reference: /root/reference/core/dft_precoding.py — M-point unitary DFT of the
 data symbols before grid mapping (W[k,n] = exp(-2πi·k·n/M)/√M, lines 44-54)
 and the inverse IDFT at the receiver (lines 133-251). The reference already
 implements this as a precomputed M×M matrix multiply; here it is batched over
-all OFDM symbols at once and runs on the MXU as real matmul pairs.
+all OFDM symbols at once and runs as real matmul pairs.
 """
 from __future__ import annotations
 

@@ -2,27 +2,17 @@
 XLA program — either UNROLLED (independent chunk subgraphs the compiler
 schedules freely) or SEQUENTIALLY (lax.map).
 
-Why: several pipelines have measured lane-scaling CLIFFS — per-lane
-throughput collapses past a knee (SFBC 91.5k frames/s at 512 lanes ->
-49.8k at 1024; the coded block-BCJR 1736 TB/s at 128 -> 906 at 256;
-results/diversity_lane_scaling.json, results/coded_batch_scaling.json,
-results/cliff_probe.json). The big-batch program crosses a compiler
-layout/VMEM threshold on one op, and every op in the program then pays.
-
-Both fixes keep each chunk's ops at the knee-sized shapes. Measured on
-the TPU chip (2026-08-21, results/cliff_probe.json):
+Why: a pipeline can have a lane-scaling knee — past some batch size the
+per-lane throughput drops because the big-batch program crosses a
+compiler threshold on one op and every op then pays. Chunking keeps each
+chunk's ops at knee-sized shapes:
 
 - mode="unroll" (default): a trace-time Python loop emits each chunk as
-  an independent subgraph; XLA interleaves them, hiding latency. SFBC
-  2x512 unrolled = 124.8k frames/s at 1024 lanes — 2.5x the flat
-  1024-lane program and 1.36x the per-lane rate of the 512-lane knee
-  (the interleaving beats even the knee's own latency profile).
+  an independent subgraph the compiler can interleave.
 - mode="scan": lax.map chains chunks sequentially — one copy of the
   chunk program, linear cost in chunks, but a hard serialization
-  barrier between chunks. Coded 2x128 scan = 1795 TB/s at 256 lanes
-  (vs 906 flat — exactly 2x the knee step time, zero overhead); SFBC
-  2x512 scan = 60.3k (the barrier costs ~5.8 ms/step vs unrolled).
-  Use for many-chunk cases where unrolling would blow up program size.
+  barrier between chunks. Use for many-chunk cases where unrolling
+  would blow up program size.
 
 `lane_chunked(sim_fn, chunk)` wraps any sim whose first three arguments
 are (key, bits, snr) with leading lane axes on bits/snr; extra
@@ -37,35 +27,19 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# Measured chunk policy per pipeline (TPU chip, 2026-08-21,
-# results/cliff_probe.json; knees in lanes of 14-OFDM-symbol frames —
-# "coded" lanes are transport blocks, symbol-count-independent):
-#
-#   sfbc    unroll x256: 4x256@1024 = 141.4k f/s vs 49.8k flat (2.8x);
-#           2x256@512 = 103.1k vs the flat knee's own 91.5k (+13%)
-#   simo    unroll x256: 4x256@1024 = 107.2k vs ~73.7k flat (+38%)
-#   coded   scan  x128: 2x128@256 = 1,795 TB/s vs 906 flat (+98%);
-#           unroll measured slightly WORSE than scan here (1,694)
-#   siso    never: unrolling fragments one dense MXU stream
-#           (4x256@1024 = 98.5k vs 175k flat)
-#   spatial never: bin-domain pipeline is MXU-dense, no exposed latency
-#           (4x256@1024 = 64.7k ~= 68.7k flat)
-#   beamforming  no measured knee; frequency-domain chain is small
-MEASURED_KNEES = {
-    "sfbc": (256, "unroll"),
-    "simo": (256, "unroll"),
-    "coded": (128, "scan"),
-    "siso": (None, None),
-    "spatial": (None, None),
-    "beamforming": (None, None),
-}
+# Measured chunk policy per pipeline: {pipeline: (knee_lanes, mode)}, with
+# knees in lanes of 14-OFDM-symbol frames ("coded" lanes are transport
+# blocks, symbol-count-independent). Empty until a knee is measured on the
+# card (ROADMAP 1.9): every pipeline runs flat.
+MEASURED_KNEES = {}
 
-# Unrolling emits one subgraph copy per chunk; past ~8 copies the program
-# bloat erodes the win (8x128@1024 = 99.0k vs 4x256's 141.4k).
+# Unrolling emits one subgraph copy per chunk; cap the copies so program
+# size stays bounded.
 _MAX_UNROLL_CHUNKS = 8
 
 
-def auto_chunk(pipeline: str, lanes, num_ofdm_symbols: int = 14):
+def auto_chunk(pipeline: str, lanes, num_ofdm_symbols: int = 14,
+               knees=None):
     """Measured-knee chunk geometry for a batched pipeline: returns
     (chunk_size, mode) to pass to `lane_chunked` / sweep `frame_chunk`,
     or (None, None) when flat execution is the measured optimum.
@@ -74,8 +48,10 @@ def auto_chunk(pipeline: str, lanes, num_ofdm_symbols: int = 14):
     per-lane work relative to the 14-symbol frames the knees were
     measured at (a 28-symbol frame costs ~2x, so the knee halves).
     Unknown pipelines get (None, None) — flat is the safe default.
+    `knees` overrides the MEASURED_KNEES table.
     """
-    knee, mode = MEASURED_KNEES.get(pipeline, (None, None))
+    table = MEASURED_KNEES if knees is None else knees
+    knee, mode = table.get(pipeline, (None, None))
     if knee is None or not lanes:
         return None, None
     if pipeline != "coded":
@@ -96,10 +72,10 @@ def auto_chunk(pipeline: str, lanes, num_ofdm_symbols: int = 14):
 
 
 def auto_lane_chunked(sim_fn, pipeline: str, lanes,
-                      num_ofdm_symbols: int = 14):
+                      num_ofdm_symbols: int = 14, knees=None):
     """`lane_chunked` with the measured `auto_chunk` geometry; returns
     sim_fn unchanged when the policy says flat execution wins."""
-    chunk, mode = auto_chunk(pipeline, lanes, num_ofdm_symbols)
+    chunk, mode = auto_chunk(pipeline, lanes, num_ofdm_symbols, knees)
     if chunk is None:
         return sim_fn
     return lane_chunked(sim_fn, chunk, mode=mode)
@@ -109,8 +85,7 @@ def lane_chunked(sim_fn, chunk_size: int, mode: str = "unroll"):
     """Wrap sim_fn(key, bits, snr, *args, **kw) to process leading-axis
     lanes in `chunk_size` chunks inside one program.
 
-    mode="unroll" (default, measured fastest): independent per-chunk
-    subgraphs. mode="scan": sequential lax.map (smaller program; use
+    mode="unroll" (default): independent per-chunk subgraphs. mode="scan": sequential lax.map (smaller program; use
     when the chunk count is large).
 
     Falls back to a direct call when the lane count is not a positive

@@ -1,14 +1,13 @@
 """Multi-host initialization and sharded-sweep scaling helpers.
 
 The reference has no distributed backend of any kind (SURVEY §5) — its only
-concurrency is a thread pool. The TPU-native story:
+concurrency is a thread pool. Here:
 
 - `initialize(...)`: jax.distributed bring-up with retry (the only
   failure-recovery surface this workload needs — Monte-Carlo sweeps are
   stateless, so a failed host simply re-runs its shard)
-- `global_mesh(...)`: a 1-D Monte-Carlo mesh over every chip of every host;
-  the sharded sweep in parallel.sweep then spans hosts unchanged, with psum
-  riding ICI inside a slice and DCN across hosts
+- `global_mesh(...)`: a 1-D Monte-Carlo mesh over every device of every
+  host; the sharded sweep in parallel.sweep then spans hosts unchanged
 - `scaling_efficiency(...)`: samples/s scaling measurement across mesh sizes
   (the driver's ≥85% target, BASELINE.md)
 """

@@ -1,22 +1,22 @@
-"""Monte-Carlo BER/PAPR sweeps sharded over a TPU device mesh.
+"""Monte-Carlo BER/PAPR sweeps sharded over a device mesh.
 
 The reference's entire "distributed" story is a sequential Python loop over
 SNR points × trials (/root/reference/core/ofdm_core.py:1795-1846) plus a
-thread pool per RX antenna (core/parallel_processing.py). TPU-native
-replacement per SURVEY §2.9:
+thread pool per RX antenna (core/parallel_processing.py). Replacement per
+SURVEY §2.9:
 
 - SNR points and Monte-Carlo frames are ARRAY AXES of one jitted program;
-- frames shard across chips via shard_map over a 1-D 'mc' mesh;
-- bit-error counters reduce with jax.lax.psum over ICI;
+- frames shard across devices via shard_map over a 1-D 'mc' mesh;
+- bit-error counters reduce with jax.lax.psum across the mesh;
 - randomness is key-split per (device, snr, frame) — no global RNG.
 
 Multi-host: build the mesh from jax.devices() after jax.distributed
-initialization — the same shard_map program then spans hosts, with psum
-riding ICI within a slice and DCN across hosts. DP is the only parallelism
-dimension this workload needs (no TP/PP/EP — there are no weights). The mesh
-is 1-D ('mc') by default; `make_mesh_2d` gives a ('snr', 'mc') mesh that
-also shards SNR points across devices (each chip then simulates only its
-SNR block — the (SNR × frames) pod-slice layout of SURVEY §2.9).
+initialization — the same shard_map program then spans hosts. DP is the
+only parallelism dimension this workload needs (no TP/PP/EP — there are no
+weights). The mesh is 1-D ('mc') by default; `make_mesh_2d` gives a
+('snr', 'mc') mesh that also shards SNR points across devices (each device
+then simulates only its SNR block). The GPUs of one host are joined all to
+all, so the mesh shape follows the algorithm alone.
 """
 from __future__ import annotations
 
@@ -28,17 +28,14 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map  # jax >= 0.7
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..config import LTEConfig
 from ..sim import siso
 
 
-def _bits_per_frame(config, num_ofdm_symbols, mode, pipeline,
-                    coded_tb_bits=6000):
+def bits_per_frame(config, num_ofdm_symbols, mode, pipeline,
+                   coded_tb_bits=6000):
     if pipeline in ("siso", "simo"):
         return siso.bits_per_frame(config, num_ofdm_symbols, mode)
     if pipeline == "sfbc":
@@ -55,10 +52,10 @@ def _bits_per_frame(config, num_ofdm_symbols, mode, pipeline,
     raise ValueError(f"unknown pipeline {pipeline}")
 
 
-def _run_pipeline(k, b, snr, config, mode, channel_type, itu_profile,
-                  velocity_kmh, pipeline, num_tx, num_rx,
-                  detector_type="MMSE", rank=None):
-    """Returns (bit_errors, papr_db) for one Monte-Carlo lane."""
+def run_lane(k, b, snr, config, mode, channel_type, itu_profile,
+             velocity_kmh, pipeline, num_tx, num_rx,
+             detector_type="MMSE", rank=None):
+    """Returns (bit_errors, papr_db) for one Monte-Carlo lane of a sweep."""
     if pipeline == "siso":
         r = siso.simulate_siso(k, b, snr, config, mode=mode,
                                channel_type=channel_type,
@@ -105,6 +102,18 @@ def _run_pipeline(k, b, snr, config, mode, channel_type, itu_profile,
     raise ValueError(f"unknown pipeline {pipeline}")
 
 
+def lane_inputs(key, device_index, num_snr: int, frames: int, n_bits: int):
+    """Per-lane PRNG keys (num_snr, frames, 2) and TX bits (num_snr, frames,
+    n_bits) of one device's shard — the exact derivation ber_sweep uses, so
+    a caller can re-run chosen lanes of a sweep elsewhere."""
+    key = jax.random.fold_in(key, device_index)
+    kb, kc = jax.random.split(key)
+    bits = jax.random.bernoulli(
+        kb, 0.5, (num_snr, frames, n_bits)).astype(jnp.int32)
+    keys = jax.random.split(kc, num_snr * frames).reshape(num_snr, frames, 2)
+    return keys, bits
+
+
 class SweepResult(NamedTuple):
     snr_db: jnp.ndarray        # (S,)
     ber: jnp.ndarray           # (S,)
@@ -121,11 +130,10 @@ def make_mesh(devices=None, axis_name: str = "mc") -> Mesh:
 
 def make_mesh_2d(num_snr_shards: int, devices=None) -> Mesh:
     """2-D ('snr', 'mc') mesh: SNR points shard across the first axis,
-    Monte-Carlo frames across the second (SURVEY §2.9: "shard (SNR point ×
-    frame batch) across a pod slice"). Use when SNR-point count × frame
-    batch exceeds what replicating every point on every chip allows — each
-    chip then simulates only its SNR block, and the psum error reduction
-    rides ICI within an 'mc' row."""
+    Monte-Carlo frames across the second (SURVEY §2.9). Use when SNR-point
+    count × frame batch exceeds what replicating every point on every
+    device allows — each device then simulates only its SNR block, and the
+    psum error reduction runs within an 'mc' row."""
     devices = devices if devices is not None else jax.devices()
     n = len(devices)
     if n % num_snr_shards:
@@ -163,15 +171,11 @@ def ber_sweep(key: jax.Array, config: LTEConfig, snr_points,
 
     frame_chunk: process each SNR point's frames_per_device in chunks of
     this size inside the one sharded program (parallel/chunking
-    rationale). Per-lane cost has measured knees past which big flat
-    batches collapse (results/cliff_probe.json: SFBC and SIMO lose 2x
-    past ~512 lanes; knee-chunk unrolling instead GAINS 1.4-1.6x over
-    the flat knee rate; the coded chain doubles with scan chunks).
-    An int chunks with UNROLLED independent subgraphs; "auto" applies
-    the measured per-pipeline policy (parallel.chunking.auto_chunk —
-    unroll x256-lane-equivalent for sfbc/simo, sequential lax.map x128
-    for coded, flat for siso/spatial/beamforming); a (chunk, mode)
-    tuple picks the geometry explicitly (mode "unroll" or "scan").
+    rationale). An int chunks with UNROLLED independent subgraphs; "auto"
+    applies the measured per-pipeline policy (parallel.chunking.auto_chunk,
+    flat for every pipeline until a knee is measured on the card); a
+    (chunk, mode) tuple picks the geometry explicitly (mode "unroll" or
+    "scan").
     None (default) keeps one flat vmap. Ignored unless it divides frames_per_device. Chunked
     and flat runs use identical per-lane keys, so results match the
     flat program up to float reassociation.
@@ -195,7 +199,7 @@ def ber_sweep(key: jax.Array, config: LTEConfig, snr_points,
                                  jnp.broadcast_to(snr_points[-1:], (S_pad,))])
                 if S_pad else snr_points)
     S_local = (S + S_pad) // n_snr_shards
-    n_bits = _bits_per_frame(config, num_ofdm_symbols, mode, pipeline,
+    n_bits = bits_per_frame(config, num_ofdm_symbols, mode, pipeline,
                              coded_tb_bits)
     F = frames_per_device
     chunk_mode = "unroll"
@@ -212,17 +216,12 @@ def ber_sweep(key: jax.Array, config: LTEConfig, snr_points,
         dev = jax.lax.axis_index(axis)
         if snr_axis is not None:
             dev = dev + jax.lax.axis_index(snr_axis) * mc_size
-        key = jax.random.fold_in(key, dev)
-        kb, kc = jax.random.split(key)
-        bits = jax.random.bernoulli(
-            kb, 0.5, (S_local, F, n_bits)).astype(jnp.int32)
-        keys = jax.random.split(kc, S_local * F).reshape(S_local, F, 2)
+        keys, bits = lane_inputs(key, dev, S_local, F, n_bits)
 
         def one_lane(k, b, snr):
-            r = _run_pipeline(k, b, snr, config, mode, channel_type,
-                              itu_profile, velocity_kmh, pipeline,
-                              num_tx, num_rx, detector_type, rank)
-            return r
+            return run_lane(k, b, snr, config, mode, channel_type,
+                            itu_profile, velocity_kmh, pipeline,
+                            num_tx, num_rx, detector_type, rank)
 
         if frame_chunk and frame_chunk < F and F % frame_chunk == 0:
             nch = F // frame_chunk
@@ -230,9 +229,7 @@ def ber_sweep(key: jax.Array, config: LTEConfig, snr_points,
             if chunk_mode == "scan":
                 def one_snr(ks, bs, snr):
                     # sequential lax.map over knee-sized chunks: one copy
-                    # of the chunk program, linear cost — the measured
-                    # winner for the coded chain (1,795 vs 906 TB/s,
-                    # results/cliff_probe.json)
+                    # of the chunk program, linear cost
                     ksc = ks.reshape((nch, frame_chunk) + ks.shape[1:])
                     bsc = bs.reshape((nch, frame_chunk) + bs.shape[1:])
                     out = jax.lax.map(
@@ -243,8 +240,7 @@ def ber_sweep(key: jax.Array, config: LTEConfig, snr_points,
             else:
                 def one_snr(ks, bs, snr):
                     # unrolled knee-sized chunks: independent subgraphs XLA
-                    # interleaves (measured 1.4-1.6x the flat rate past the
-                    # lane knee for SFBC/SIMO, results/cliff_probe.json)
+                    # interleaves
                     outs = [jax.vmap(lambda k, b: one_lane(k, b, snr))(
                         ks[i * frame_chunk:(i + 1) * frame_chunk],
                         bs[i * frame_chunk:(i + 1) * frame_chunk])
@@ -345,11 +341,7 @@ def harq_sweep(key: jax.Array, config: LTEConfig, snr_points,
         dev = jax.lax.axis_index(axis)
         if snr_axis is not None:
             dev = dev + jax.lax.axis_index(snr_axis) * mc_size
-        key = jax.random.fold_in(key, dev)
-        kb, kc = jax.random.split(key)
-        bits = jax.random.bernoulli(
-            kb, 0.5, (S_local, F, tb_bits)).astype(jnp.int32)
-        keys = jax.random.split(kc, S_local * F).reshape(S_local, F, 2)
+        keys, bits = lane_inputs(key, dev, S_local, F, tb_bits)
 
         def one_lane(k, b, snr):
             r = coded.simulate_siso_coded_harq_batched(

@@ -1,35 +1,22 @@
-"""Global matmul-precision policy for the modem's MXU kernels.
+"""Global matmul-precision policy for the float32 matmul kernels.
 
 The framework's hot kernels are f32 complex matmuls (DFT modem, Jakes
-generator, SC-FDM precoding). On TPU, `HIGHEST` runs true-f32 MXU passes
-(multi-pass bf16 decomposition); `DEFAULT` runs single-pass bf16 MXU at a
-multiple of the FLOP rate with ~2-3 decimal digits of mantissa.
+generator, SC-FDM precoding). On an NVIDIA H100, `default` lets XLA run
+float32 dots in TF32 on the tensor cores (10-bit mantissa, unit roundoff
+about 4.9e-4); `highest` keeps true float32 arithmetic off the tensor cores;
+`high` runs whatever the compiled HLO on the card shows (PERF.md records
+it). On the CPU the knob is inert (XLA:CPU dots are plain f32 at every
+level), so the CPU test suite's parity results do not depend on it.
 
 Policy is process-level, selected via the environment variable
 
     OFDM_LTE_TPU_MATMUL_PRECISION = default | high | highest
 
 and read at trace time (flip the env + jax.clear_caches() to change it
-mid-process).
-
-THE SUPPORTED DEFAULT IS `default` (single-pass bf16): measured on the
-real chip (tools/precision_study.py, 2026-08-20), it runs the 20 MHz
-64-QAM SISO headline 1.82x faster (138,449 vs 75,885 frames/s at that
-date's time-domain-noise chain; 2026-08-21 freq-noise chain: ~195k vs
-~178k — the gap narrows because the serialized-step dispatch floor
-dominates once the matmuls shrink, see VALIDATION.md) with BER
-statistically identical to `highest` at every anchor — QPSK@6dB
-0.014934 vs 0.014916, 16-QAM@14dB 0.008106 vs 0.008101, 64-QAM@20dB
-0.010046 vs 0.009948, 64-QAM@15dB/20MHz 0.0858505 vs 0.0858605 (all
-within ~1.6 sigma of the Monte-Carlo counting noise at 2.7M bits/point;
-the channel noise floor dominates bf16 rounding at practical SNRs).
-`highest` remains the documented NUMERICAL-PARITY mode: use it when
-bit-level agreement with the reference's float64 FFT chain matters more
-than throughput (e.g. regenerating parity tables). bench.py measures and
-cross-checks both modes every run (its parity_ok guard).
-
-On CPU the knob is inert (XLA CPU matmuls are plain f32 at every level),
-so the CPU test suite's parity results are unaffected by the default.
+mid-process). `default` is the throughput mode; `highest` is the
+numerical-parity mode for bit-level agreement with the reference's float64
+FFT chain. chip_smoke.py bounds the modem's error against a float64 FFT at
+both levels, and compares BER at both levels with the CPU.
 """
 from __future__ import annotations
 

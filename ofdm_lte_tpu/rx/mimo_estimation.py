@@ -42,7 +42,7 @@ def _tap_basis_projection(pilot_idx: tuple, out_bins: tuple, N: int,
     Exact for any channel whose delay spread is < D samples, where linear
     interpolation across a SPARSE comb (step 8 -> ~48-bin gaps at 10 MHz)
     breaks down — the phase of a 6-sample-delay tap rotates ~100° per gap.
-    One tiny complex matmul per (rx, tx) at apply time (MXU-friendly).
+    One tiny complex matmul per (rx, tx) at apply time (one dense matmul).
 
     Default D = max(4, 3P//5): an over-determined fit that averages pilot
     noise by ~P/D while covering pedestrian-class delay spreads

@@ -300,7 +300,7 @@ def simulate_siso_coded_batched(key: jax.Array, bits, snr_db,
     (...,). Unlike `simulate_siso_coded` (host-orchestrated, one TB at a
     time — kept for exact reference-workflow parity), this compiles to a
     single XLA program and batches transport blocks as array axes — the
-    TPU-native way to run coded Monte-Carlo sweeps
+    way to run coded Monte-Carlo sweeps on a device
     (ofdm_core.py:925-1338 at scale).
 
     use_max_log: None (default) follows turbo.USE_MAX_LOG_MAP, resolved
@@ -407,7 +407,7 @@ def simulate_siso_coded_harq_batched(key: jax.Array, bits, snr_db,
     """Fully in-graph HARQ chase combining: bits (..., n_bits), snr_db
     scalar or (...,). Compiles the whole retransmission schedule into a
     single XLA program so HARQ BLER/avg-transmissions waterfalls run at
-    Monte-Carlo scale on TPU (the host-loop variant
+    Monte-Carlo scale on the device (the host-loop variant
     simulate_siso_coded_harq processes one TB per call)."""
     if use_max_log is None:
         use_max_log = turbo.USE_MAX_LOG_MAP

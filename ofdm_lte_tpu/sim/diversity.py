@@ -74,19 +74,13 @@ def simulate_simo(key: jax.Array, bits: jnp.ndarray, snr_db,
     signal_tx = siso_mod.transmit(bits, config)              # (..., T)
     papr = ofdm.papr_db(signal_tx, axis=-1)
 
-    # Default: time-domain noise DELIBERATELY (unlike sfbc/spatial):
-    # moving the per-leg AWGN to the demodulated bins was measured 25-45%
-    # SLOWER here (31-36k vs 45k frames/s, 2026-08-21) — with the noise
-    # barrier gone, the compiler rematerializes the per-leg Jakes fading
-    # chain for the extra consumers of the noiseless signal.
-    # OFDM_LTE_TPU_SIMO_NOISE=bins retries the bin-domain variant with an
-    # explicit jax.lax.optimization_barrier pinning the faded legs.
-    # MEASURED AND REJECTED (tools/probe_simo_bin_noise.py, 2026-08-21,
-    # back-to-back same-phase rolls): bins 38.7k vs time 43.9k frames/s
-    # — the barrier prevents the remat but the variant still loses ~12%
-    # (the per-leg noise add fuses into the existing tap-FMA pass for
-    # free; the bin variant pays an extra pilot-plane RNG + pass).
-    # Kept behind the env knob for future backends.
+    # Default: time-domain noise (unlike sfbc/spatial): the per-leg noise
+    # add fuses into the tap-FMA pass, while moving it to the demodulated
+    # bins lets the compiler rematerialize the per-leg Jakes fading chain
+    # for the extra consumers of the noiseless signal.
+    # OFDM_LTE_TPU_SIMO_NOISE=bins selects the bin-domain variant, with an
+    # explicit jax.lax.optimization_barrier pinning the faded legs; it has
+    # not been timed on the GPU.
     import os
     use_bins = (channel_type == "rayleigh_mp"
                 and os.environ.get("OFDM_LTE_TPU_SIMO_NOISE",

@@ -151,11 +151,9 @@ def _receive_awgn_freq(key: jax.Array, signal: C, snr_db, config: LTEConfig,
     and the guard/DC bins, so time-domain CN(0, σ²) noise reaches the
     detector ONLY as i.i.d. CN(0, σ²) at the S·n_data data bins and the
     n_slots·n_pil slot-start pilot bins. Injecting it there directly is
-    statistically identical (measured BER 0.085850 vs 0.085941 at 2.15M
-    bits, 64-QAM 15 dB) while generating ~2.1x fewer Gaussians and never
-    materializing a separate rx time signal — measured 1777.7 -> 1298.7
-    µs/step on the 256-lane 20 MHz 64-QAM headline (+27%,
-    tools/profile_siso_stages.py 2026-08-21). σ² keeps the reference's
+    statistically identical (BER 0.085850 vs 0.085941 at 2.15M bits,
+    64-QAM 15 dB, on the CPU) while generating ~2.1x fewer Gaussians and
+    never materializing a separate rx time signal. σ² keeps the reference's
     definition against measured mean TX power (channel.py:10-80)."""
     snr_lin = 10.0 ** (jnp.asarray(snr_db, jnp.float32) / 10.0)
     p = signal.abs2()
@@ -220,7 +218,7 @@ def simulate_siso(key: jax.Array, bits: jnp.ndarray, snr_db,
     measure_axes = -1 if bits.ndim > 1 else None
     if (channel_type == "awgn" and mode in ("lte", "sc-fdm")
             and enable_equalization):
-        # TPU-first AWGN: unitary-DFT-equivalent noise at the received
+        # AWGN as unitary-DFT-equivalent noise at the received
         # bins (see _receive_awgn_freq) — no rx time signal materialized
         bits_rx, x_eq, psnr = _receive_awgn_freq(
             key, signal_tx, snr_db, config, mode, measure_axes)

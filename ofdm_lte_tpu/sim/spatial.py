@@ -120,7 +120,7 @@ def _simulate_spatial_jit(key, bits, snr_db, W_re, W_im, config: LTEConfig,
     layers = layer_mapper.map_to_layers(syms, rank_used)  # (..., S, L, m)
 
     # precode: x[tx, k] = Σ_l W[tx,l]·layers[l,k]  -> (..., S, tx, m)
-    # (tiny (tx×L) contraction -> VPU broadcast-FMA, not an MXU dot)
+    # (tiny (tx×L) contraction -> broadcast-FMA, not a dot)
     x = cplx.matmul_small(W, layers)
 
     pil_idx = orthogonal_pilot_indices(config, num_tx, pilot_layout)

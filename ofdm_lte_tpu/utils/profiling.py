@@ -25,170 +25,62 @@ from ..config import LTEConfig
 from ..grid import grid_for
 
 
-# TPU v5e (1 chip) datasheet-derived peaks; overridden below by the
-# MEASURED ceilings in results/machine_peaks.json when present
-# (tools/measure_peaks.py — achieved GEMM/stream/fused-elementwise rates
-# under the same serialized-step methodology as bench.py, which is what
-# a "fraction of speed-of-light" should be judged against on a backend
-# whose remote compiler does not reach datasheet rates).
-PEAK_F32_FLOPS = 98.3e12 / 2        # MXU f32 ~ half of bf16 throughput
-PEAK_BF16_FLOPS = 197e12
-PEAK_HBM_BYTES_S = 819e9
-# Vector unit f32 peak (elementwise/transcendental work: RNG, noise add,
-# demap). Conservative estimate — the VPU is ~2 orders below the MXU.
-PEAK_VPU_FLOPS = 4e12
-
-# Effective MXU peak per matmul-precision policy (ofdm_lte_tpu.precision):
-# HIGHEST runs multi-pass bf16 decompositions for f32-grade results (the
-# empirically consistent rate on this backend is ~bf16/2), HIGH ~bf16x3,
-# DEFAULT is single-pass bf16.
-PEAK_MXU_BY_PRECISION = {
-    "highest": PEAK_F32_FLOPS,
-    "high": PEAK_BF16_FLOPS / 3,
-    "default": PEAK_BF16_FLOPS,
+# Published dense peaks (no sparsity) keyed by jax Device.device_kind, from
+# NVIDIA's H100 data sheets. They assume the card's full power limit; a card
+# capped below it (nvidia-smi power.limit) cannot hold them under load.
+# Units: "bf16" and "tf32" are the tensor cores, "fp32" is float32 outside
+# them (elementwise work also runs there), "hbm" is device memory in B/s.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {           # SXM5, 700 W
+        "bf16": 989e12, "tf32": 495e12, "fp32": 67e12, "hbm": 3.35e12},
+    "NVIDIA H100 PCIe": {                # 350 W
+        "bf16": 756e12, "tf32": 378e12, "fp32": 51e12, "hbm": 2.0e12},
 }
 
-PEAKS_SOURCE = "datasheet-estimate"
+# The unit each matmul-precision policy (ofdm_lte_tpu.precision) runs its
+# float32 dots on here: `default` allows TF32, `highest` keeps float32;
+# `high` is what the compiled HLO on the card shows (PERF.md).
+PRECISION_UNIT = {"default": "tf32", "high": "tf32", "highest": "fp32"}
+
+VECTOR = "fp32"          # elementwise, RNG and reduction work
 
 
-def _load_measured_peaks():
-    """Override the unit peaks with the committed measured CEILINGS —
-    since round 5 the calibrated keys (tools/measure_peaks.py):
-
-    - mxu_{default,highest}_ceiling_tflops: best demonstrated effective
-      rate in the 8mkn complex-matmul convention across the mono-GEMM
-      probe AND the modem's own shapes through the repo's cmatmul path
-      (the r4 fractions >1 traced to charging the 'highest' modem matmuls
-      at the 4096² multi-pass rate, 3x below what the xla4 decomposition
-      reaches at the modem's shapes);
-    - vpu_ceiling_gflops: best demonstrated elementwise rate across the
-      serial Horner, the ILP-parallel Horner, and the RNG-implied rate
-      (the r4 'fused-VPU' 0.64 TF figure was a latency artifact a fused
-      program legitimately beats — not a ceiling).
-
-    Every roofline fraction is modeled_time / measured_time with each
-    stage charged at max(flops/unit_ceiling, bytes/hbm_ceiling); with
-    ceilings = best demonstrated unit rates, modeled <= achievable and
-    the fraction lands in (0, 1]."""
-    global PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_HBM_BYTES_S
-    global PEAK_VPU_FLOPS, PEAK_MXU_BY_PRECISION, PEAKS_SOURCE
-    import json
-    import os
-    path = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "results", "machine_peaks.json")
+def peaks_for(device_kind: str) -> Dict[str, float]:
+    """Published peaks of `device_kind`; an unknown kind is an error, never
+    a default."""
     try:
-        with open(path) as f:
-            p = json.load(f)
-    except (OSError, ValueError):
-        return
-    PEAK_BF16_FLOPS = p.get("mxu_default_ceiling_tflops",
-                            p["gemm_default_tflops"]) * 1e12
-    PEAK_F32_FLOPS = p.get("mxu_highest_ceiling_tflops",
-                           p["gemm_highest_tflops"]) * 1e12
-    PEAK_HBM_BYTES_S = p["hbm_stream_gbs"] * 1e9
-    PEAK_VPU_FLOPS = p.get("vpu_ceiling_gflops",
-                           p["vpu_fused_gflops"]) * 1e9
-    PEAK_MXU_BY_PRECISION = {
-        "highest": PEAK_F32_FLOPS,
-        "high": PEAK_BF16_FLOPS / 3,
-        "default": PEAK_BF16_FLOPS,
-    }
-    PEAKS_SOURCE = f"measured {p.get('measured', '?')} (machine_peaks.json)"
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(f"no published peaks for device kind "
+                       f"{device_kind!r}; add them to PEAKS") from None
 
 
-# Datasheet-derived UNBEATABLE unit rates in the same 8mkn-effective
-# complex-matmul currency as the measured ceilings: bf16 MXU 197 TF real
-# flops/s; single-pass gauss-3 executes 6mkn -> effective 8/6·197; f32-grade
-# results need >=3 bf16 passes per real product (bf16x3) -> 8/18·197. VPU:
-# ALU-count estimate (8x128 lanes · 4 ALUs · ~1 GHz · 2 flops) — above any
-# demonstrable elementwise rate. The _datasheet fraction these produce is a
-# hard lower bound on the true fraction.
-_DATASHEET_PEAKS = {
-    "mxu_default": 197e12 * 8 / 6, "mxu_high": 197e12 * 8 / 18,
-    "mxu_highest": 197e12 * 8 / 18, "vpu": 8e12, "hbm": 819e9,
-}
-
-_load_measured_peaks()
-
-_ACTIVE_PEAKS = {
-    "mxu_default": PEAK_MXU_BY_PRECISION["default"],
-    "mxu_high": PEAK_MXU_BY_PRECISION["high"],
-    "mxu_highest": PEAK_MXU_BY_PRECISION["highest"],
-    "vpu": PEAK_VPU_FLOPS, "hbm": PEAK_HBM_BYTES_S,
-}
-
-
-def _unit_of(cost) -> str:
-    """A KernelCost's unit name: the explicit `unit` field when set
-    (ADVICE r4: reverse-mapping the float peak silently misclassified
-    kernels after a PEAK_* rebind), else recovered by float-matching the
-    active table (legacy call sites)."""
-    if getattr(cost, "unit", None):
-        return cost.unit
-    for unit, v in _ACTIVE_PEAKS.items():
-        if unit != "hbm" and abs(cost.peak_flops - v) < 0.5e9:
-            return unit
-    return "vpu"
-
-
-def _total_roofline_s(costs, peaks=None) -> float:
-    """Sum of per-kernel roofline times; peaks=None uses the active
-    (measured-if-available) tables, else the given unit->rate dict."""
-    if peaks is None:
-        return sum(c.roofline_time_s() for c in costs.values())
-    return sum(max(c.flops / peaks[_unit_of(c)],
-                   c.bytes / peaks["hbm"]) for c in costs.values())
-
-
-def _fraction_fields(costs, measured_step_s: float,
-                     dispatch_floor_s: float = 0.0) -> Dict:
+def _fraction_fields(costs, measured_step_s: float, peaks) -> Dict:
     """Roofline fields for a cost dict against a MEASURED per-step time.
 
-    The primary `roofline_fraction` models what the compiled program
-    actually executes PER STEP under the bench's fixed-codeword
-    Monte-Carlo harness: stages marked loop_invariant (the TX side — it
-    depends only on the constant bits) are hoisted out of the serialized
-    step loop by XLA (verified on-chip: a keyed-bits variant that defeats
-    hoisting runs the same program 6.0x slower, hoisted share 83%,
-    results/hoisting_probe.json), so they are excluded, and the measured
-    serialized-dispatch floor is added (it is genuinely paid every step).
-    The floor and the device compute OVERLAP (the floor is host-side
-    dispatch-pipeline latency, during which the device still executes),
-    so a serialized step can do no better than max(floor, steady_work),
-    not their sum; and the floor term is clamped to the measured step
-    (a step that ran in 1.31 ms proves this session's floor is <=
-    1.31 ms, whatever the pinned estimate says).
-    fraction = max(min(floor, measured), steady_roofline) / measured —
-    in (0, 1] when the model and ceilings are right.
-
+    `roofline_fraction` models what the program executes PER STEP under the
+    bench's fixed-codeword Monte-Carlo harness: stages marked
+    loop_invariant (the TX side — it depends only on the constant bits)
+    are assumed hoisted out of the timed step loop by XLA, so they are
+    excluded (ROADMAP 1.4 asks for a trace to confirm it on the card).
     `full_chain_roofline_s` keeps the all-stages model, and
-    `full_chain_model_over_measured_x` reports how many times the
-    modeled full chain exceeds the measured step — i.e. the measured
-    amortization win of the fixed-codeword harness, NOT a fraction of
-    speed-of-light (it exceeds 1 by design).
-
-    `roofline_fraction_datasheet_peaks` recomputes the steady fraction
-    against datasheet unit peaks — a hard lower bound."""
+    `full_chain_model_over_measured_x` reports how many times the modeled
+    full chain exceeds the measured step."""
     steady = {k: c for k, c in costs.items() if not c.loop_invariant}
-    t_steady = _total_roofline_s(steady)
-    t_full = _total_roofline_s(costs)
-    floor_eff = min(dispatch_floor_s, measured_step_s)
-    out = {
-        "roofline_s": max(floor_eff, t_steady),
-        "roofline_fraction": max(floor_eff, t_steady)
-        / measured_step_s if measured_step_s else 0.0,
+    t_steady = sum(c.roofline_time_s(peaks) for c in steady.values())
+    t_full = sum(c.roofline_time_s(peaks) for c in costs.values())
+    return {
+        "roofline_s": t_steady,
+        "roofline_fraction": t_steady / measured_step_s
+        if measured_step_s else 0.0,
         "full_chain_roofline_s": t_full,
         "full_chain_model_over_measured_x": t_full / measured_step_s
         if measured_step_s else 0.0,
         "hoisted_stages": sorted(k for k, c in costs.items()
                                  if c.loop_invariant),
+        "per_kernel_us": {k: round(c.roofline_time_s(peaks) * 1e6, 1)
+                          for k, c in costs.items()},
     }
-    if PEAKS_SOURCE != "datasheet-estimate":
-        t_ds = _total_roofline_s(steady, _DATASHEET_PEAKS)
-        out["roofline_fraction_datasheet_peaks"] = (
-            max(floor_eff, t_ds) / measured_step_s
-            if measured_step_s else 0.0)
-    return out
 
 
 @contextlib.contextmanager
@@ -221,36 +113,25 @@ class KernelCost:
     name: str
     flops: float
     bytes: float
-    peak_flops: float = PEAK_F32_FLOPS   # rate this kernel's flops run at
-    unit: str = None                     # "mxu_<precision>" | "vpu" | None
+    unit: str = VECTOR                   # a PEAKS unit: its flops run there
     # True for stages that depend only on the (constant) TX bits, not on
     # the per-step PRNG key: under the bench's fixed-codeword Monte-Carlo
-    # harness XLA hoists them out of the serialized step loop entirely
-    # (measured: 83% of the SISO chain, results/hoisting_probe.json), so
-    # the per-step roofline must exclude them
+    # harness XLA can hoist them out of the timed step loop, so the
+    # per-step roofline excludes them
     loop_invariant: bool = False
 
-    def roofline_time_s(self, peak_bw=PEAK_HBM_BYTES_S) -> float:
-        return max(self.flops / self.peak_flops, self.bytes / peak_bw)
+    def roofline_time_s(self, peaks) -> float:
+        return max(self.flops / peaks[self.unit], self.bytes / peaks["hbm"])
 
 
-def _mxu_unit(precision: str) -> str:
-    return f"mxu_{precision}" if precision in ("default", "high",
-                                               "highest") else "mxu_highest"
-
-
-def _cmatmul_cost(name, m, k, n, peak=PEAK_F32_FLOPS,
-                  dtype_bytes=4, unit=None,
+def _cmatmul_cost(name, m, k, n, unit, dtype_bytes=4,
                   loop_invariant=False) -> KernelCost:
     """Complex matmul in the 8·m·k·n effective-FLOP convention (4 real
-    matmuls; the gauss 3-multiply path executes 6mkn but the unit
-    ceilings are measured in the same 8mkn-effective currency, see
-    tools/measure_peaks.measure_cmatmul_modem); operands+result re/im
-    pairs."""
+    matmuls; the gauss 3-multiply path executes 6mkn); operands+result
+    re/im pairs."""
     flops = 8.0 * m * k * n
     byts = dtype_bytes * 2 * (m * k + k * n + m * n)
-    return KernelCost(name, flops, byts, peak, unit,
-                      loop_invariant=loop_invariant)
+    return KernelCost(name, flops, byts, unit, loop_invariant=loop_invariant)
 
 
 def siso_frame_cost(config: LTEConfig, num_symbols: int = 14,
@@ -259,20 +140,20 @@ def siso_frame_cost(config: LTEConfig, num_symbols: int = 14,
                     bits_dtype_bytes: int = 1,
                     awgn_mode: str = "freq") -> Dict[str, KernelCost]:
     """Complete-program cost model for one SISO frame batch: every stage the
-    program must execute at the speed-of-light of its unit (MXU matmuls,
-    VPU elementwise/RNG, HBM passes). A matmul-only model understates the
+    program must execute at the speed-of-light of its unit (matmuls on the
+    precision's unit, elementwise/RNG work, device-memory passes). A matmul-only model understates the
     mandatory work — the AWGN channel alone is three full passes over the
     time-domain signal plus two Gaussian draws per sample — and so reports
     an artificially low roofline fraction for a program that is in fact
     near the hardware bound.
 
     Per-stage accounting (T = total time-domain samples, D = data symbols):
-    - tx_idft / rx_dft: the fused modem matmuls (MXU, precision-dependent
-      peak from PEAK_MXU_BY_PRECISION).
+    - tx_idft / rx_dft: the fused modem matmuls (on the unit
+      PRECISION_UNIT names for the precision).
     - awgn_channel: power-measure pass (3 flops + 8 B/sample read), RNG
-      (2 normals/sample, ~24 VPU flops each for counter-based bits +
+      (2 normals/sample, ~24 flops each for counter-based bits +
       Box-Muller transcendentals), fused scale-add (4 flops/sample).
-      awgn_mode="freq" (the sim's AWGN default since 2026-08-21,
+      awgn_mode="freq" (the sim's AWGN default,
       sim/siso._receive_awgn_freq): noise is injected at the received
       data/pilot BINS — unitary-DFT equivalent — so the RNG covers
       S·n_data + n_slots·n_pil bin samples instead of S·(N+cp) time
@@ -296,63 +177,54 @@ def siso_frame_cost(config: LTEConfig, num_symbols: int = 14,
     bits_per = config.bits_per_symbol
     bB = bits_dtype_bytes      # bench feeds int8 bit arrays (1 B/bit);
     #                            int32 callers pay 4 B/bit here
-    mxu = PEAK_MXU_BY_PRECISION.get(precision, PEAK_F32_FLOPS)
+    mm = PRECISION_UNIT[precision]
     # loop-invariant tags: under a fixed-codeword harness the TX side
     # (and, in freq-AWGN mode, both RX DFTs of the then-constant signal)
     # depends only on the bits — XLA hoists it out of the step loop
     inv_rx = awgn_mode == "freq"
     costs = {
-        "tx_idft": _cmatmul_cost("tx_idft", S, g.num_data, sps, mxu,
-                                 unit=_mxu_unit(precision),
+        "tx_idft": _cmatmul_cost("tx_idft", S, g.num_data, sps, mm,
                                  loop_invariant=True),
         "rx_dft_data": _cmatmul_cost("rx_dft_data", S, config.N,
-                                     g.num_data, mxu,
-                                     unit=_mxu_unit(precision),
+                                     g.num_data, mm,
                                      loop_invariant=inv_rx),
         "rx_dft_pilot": _cmatmul_cost(
             "rx_dft_pilot", lanes * max(1, num_symbols // 14), config.N,
-            g.num_pilot, mxu, unit=_mxu_unit(precision),
-            loop_invariant=inv_rx),
+            g.num_pilot, mm, loop_invariant=inv_rx),
         # noise power from the (constant) TX signal: hoisted
         "awgn_sigma": KernelCost(
             "awgn_sigma", flops=3.0 * T, bytes=8.0 * T,
-            peak_flops=PEAK_VPU_FLOPS, unit="vpu",
+            unit=VECTOR,
             loop_invariant=True),
         # the per-step noise draw + scale-add
         "awgn_rng_add": KernelCost(
             "awgn_rng_add",
             flops=(2 * 24 + 4) * Tb,
             bytes=(0 if awgn_mode == "freq" else 16) * Tb,
-            peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+            unit=VECTOR),
         "papr": KernelCost(
             # |x|² + max/mean reductions over the full TX signal
             # (ofdm.papr_db): one read of the complex signal, 4 flops/sample
             "papr", flops=4.0 * T, bytes=8.0 * T,
-            peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu",
+            unit=VECTOR,
             loop_invariant=True),
         "qam_map": KernelCost(
             # bits -> symbols: read bps ints per symbol (at the caller's
             # bit dtype width), closed-form per-axis map
             "qam_map", flops=10.0 * D, bytes=bB * bits_per * D + 8.0 * D,
-            peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu",
+            unit=VECTOR,
             loop_invariant=True),
         "qam_demap": KernelCost("qam_demap", flops=30.0 * D,
                                 bytes=8.0 * D + bB * bits_per * D,
-                                peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+                                unit=VECTOR),
         "estimate_zf": KernelCost("estimate_zf", flops=14.0 * D,
                                   bytes=8.0 * D,
-                                  peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+                                  unit=VECTOR),
         "bit_error_count": KernelCost(
             # compare RX bits vs TX bits + reduction: two bit-array reads
             # at the caller's dtype width
             "bit_error_count", flops=2.0 * bits_per * D,
-            bytes=2.0 * bB * bits_per * D, peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+            bytes=2.0 * bB * bits_per * D, unit=VECTOR),
     }
     return costs
 
@@ -389,61 +261,53 @@ def spatial_frame_cost(config: LTEConfig, num_symbols: int = 14,
     Nb = num_rx * B * (m + n_pil)          # noisy bin samples (complex)
     bps = config.bits_per_symbol
     bB = bits_dtype_bytes
-    mxu = PEAK_MXU_BY_PRECISION.get(precision, PEAK_F32_FLOPS)
+    mm = PRECISION_UNIT[precision]
     costs = {
-        # bits -> QAM symbols -> zero-pad -> layers -> W precode (VPU);
+        # bits -> QAM symbols -> zero-pad -> layers -> W precode;
         # loop-invariant under the fixed-codeword harness (constant bits)
         "qam_map_precode": KernelCost(
             "qam_map_precode",
             flops=(10.0 + 8.0 * rank) * Dq,
             bytes=bB * bps * Dq + 8.0 * Dq + 8.0 * num_tx * lanes * S * m,
-            peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu",
+            unit=VECTOR,
             loop_invariant=True),
         # fused scatter+IDFT+CP: ONE batched cmatmul over the antenna axis
-        # (gauss 3-multiply form on TPU: 6·m·k·n real flops)
         "tx_idft": KernelCost(
             "tx_idft",
             flops=8.0 * (B * num_tx) * m * sps,
             bytes=8.0 * B * num_tx * (m + sps),
-            peak_flops=mxu,
-            unit=_mxu_unit(precision),
+            unit=mm,
             loop_invariant=True),
         # PAPR + TX cross-correlation pass: one fused read of the TX
         # signals, ~8 flops/sample (|x|², max/mean, num_tx² corr FMAs)
         "papr_corr": KernelCost(
             "papr_corr", flops=8.0 * num_tx * T,
-            bytes=8.0 * num_tx * T, peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu",
+            bytes=8.0 * num_tx * T, unit=VECTOR,
             loop_invariant=True),
         # bin-domain channel: per-RX mixing FMAs + CN noise (counter RNG
-        # ~24 VPU flops/normal + fused scale-add), one plane write
+        # ~24 flops/normal + fused scale-add), one plane write
         "channel_bins": KernelCost(
             "channel_bins",
             flops=(8.0 * num_tx + 2 * 24 + 4) * Nb,
             bytes=8.0 * Nb + 8.0 * num_rx * B * m,   # write + re-read x
-            peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+            unit=VECTOR),
         # per-symbol per-TX LS + lerp to the data bins: ~14 flops and one
         # plane write per estimate point (pilot reads are table-sized)
         "estimate_per_tx": KernelCost(
             "estimate_per_tx", flops=14.0 * E, bytes=8.0 * E,
-            peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+            unit=VECTOR),
         # fused closed-form 2x2 MMSE on planes: reads 2·y + rank·num_rx·h
         # planes, ~(30 + 16·num_rx·rank) flops/bin, writes rank planes
         "detect_mmse2": KernelCost(
             "detect_mmse2",
             flops=(30.0 + 16.0 * num_rx * rank) * B * m,
             bytes=8.0 * B * (m * (num_rx + num_rx * num_tx + rank)),
-            peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+            unit=VECTOR),
         # layer interleave + hard demap + bit compare/count
         "demap_count": KernelCost(
             "demap_count", flops=(30.0 + 2.0 * bps) * Dq,
             bytes=8.0 * 2 * Dq + 2.0 * bB * bps * Dq,
-            peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+            unit=VECTOR),
     }
     if channel_impl == "time":
         # the arbiter path materializes RX time signals: per-RX mixing
@@ -453,47 +317,40 @@ def spatial_frame_cost(config: LTEConfig, num_symbols: int = 14,
             "channel_time",
             flops=(8.0 * num_tx + 3) * num_rx * T + (2 * 24 + 4) * Nb,
             bytes=8.0 * (num_tx + 2 * num_rx) * T,
-            peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu")
+            unit=VECTOR)
         costs["rx_dft"] = KernelCost(
             "rx_dft",
             flops=8.0 * (B * num_rx) * config.N * (m + n_pil),
             bytes=8.0 * B * num_rx * (config.N + m + n_pil),
-            peak_flops=mxu,
-            unit=_mxu_unit(precision))
+            unit=mm)
     return costs
 
 
-def spatial_roofline_report(config: LTEConfig, num_symbols: int, lanes: int,
-                            measured_step_s: float,
-                            num_tx: int = 2, num_rx: int = 2, rank: int = 2,
-                            precision: str = "default",
-                            dispatch_floor_s: float = 0.0,
-                            channel_impl: str = "bins") -> Dict:
-    """Roofline fraction for the spatial step. dispatch_floor_s: the
-    measured serialized-step floor (VALIDATION.md: a trivial scan body
-    costs ~1.3-1.5 ms/step on this backend); the _excl_floor fraction
-    compares modeled time against the step time above that floor, which
-    is the earnable part."""
-    costs = spatial_frame_cost(config, num_symbols, lanes, num_tx, num_rx,
-                               rank, precision, channel_impl=channel_impl)
-    over_floor = max(measured_step_s - dispatch_floor_s, 1e-9)
-    frac = _fraction_fields(costs, measured_step_s, dispatch_floor_s)
+def _report(costs: Dict[str, KernelCost], measured_step_s: float,
+            precision: str, device_kind: str, **extra) -> Dict:
+    """Roofline fields of a cost dict against a measured step on
+    `device_kind`'s published peaks."""
     return {
         "precision": precision,
-        "peaks_source": PEAKS_SOURCE,
-        "channel_impl": channel_impl,
+        "device_kind": device_kind,
         "modeled_gflops": sum(c.flops for c in costs.values()) / 1e9,
         "modeled_gbytes": sum(c.bytes for c in costs.values()) / 1e9,
         "measured_s": measured_step_s,
-        "dispatch_floor_s": dispatch_floor_s,
-        **frac,
-        "roofline_fraction_excl_floor":
-        sum(c.roofline_time_s() for c in costs.values()
-            if not c.loop_invariant) / over_floor,
-        "per_kernel_us": {k: round(c.roofline_time_s() * 1e6, 1)
-                          for k, c in costs.items()},
+        **extra,
+        **_fraction_fields(costs, measured_step_s, peaks_for(device_kind)),
     }
+
+
+def spatial_roofline_report(config: LTEConfig, num_symbols: int, lanes: int,
+                            measured_step_s: float, device_kind: str,
+                            num_tx: int = 2, num_rx: int = 2, rank: int = 2,
+                            precision: str = "default",
+                            channel_impl: str = "bins") -> Dict:
+    """Roofline fraction for the spatial step."""
+    costs = spatial_frame_cost(config, num_symbols, lanes, num_tx, num_rx,
+                               rank, precision, channel_impl=channel_impl)
+    return _report(costs, measured_step_s, precision, device_kind,
+                   channel_impl=channel_impl)
 
 
 def _jakes_channel_costs(T_samples: float, links: float, num_taps: int,
@@ -519,23 +376,21 @@ def _jakes_channel_costs(T_samples: float, links: float, num_taps: int,
         tap_hold = _tap_hold(int(T_samples), profile)
     tap_hold = max(1, tap_hold or 1)
     Tg = T_samples / tap_hold
-    mxu = PEAK_MXU_BY_PRECISION.get(precision, PEAK_F32_FLOPS)
+    mm = PRECISION_UNIT[precision]
     return {
         # 4-multiply complex matmul (cplx.matmul — not the modem's gauss
         # path): 8·L·Ns·Tg flops, dominated by the (L, Tg) tap-waveform
         # write (E/P operands are KB-sized)
         "jakes_matmul": KernelCost(
             "jakes_matmul", flops=8.0 * L * ns * Tg,
-            bytes=8.0 * L * Tg, peak_flops=mxu,
-            unit=_mxu_unit(precision)),
+            bytes=8.0 * L * Tg, unit=mm),
         # per-tap delayed FMA: reads every (held) tap waveform once, the
         # input signal x_reads times, writes the faded sum
         "tap_fma": KernelCost(
             "tap_fma", flops=8.0 * L * T_samples,
             bytes=8.0 * (L * Tg / max(T_samples, 1.0) + links * x_reads
                          + links) * T_samples,
-            peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+            unit=VECTOR),
     }
 
 
@@ -567,18 +422,15 @@ def simo_frame_cost(config: LTEConfig, num_symbols: int = 14,
     M = num_rx * T                    # noisy time samples
     bps = config.bits_per_symbol
     bB = bits_dtype_bytes
-    mxu = PEAK_MXU_BY_PRECISION.get(precision, PEAK_F32_FLOPS)
+    mm = PRECISION_UNIT[precision]
     costs = {
         "qam_map": KernelCost("qam_map", flops=10.0 * D,
                               bytes=bB * bps * D + 8.0 * D,
-                              peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu", loop_invariant=True),
+                              unit=VECTOR, loop_invariant=True),
         "tx_idft": KernelCost("tx_idft", flops=8.0 * B * nd * sps,
-                              bytes=8.0 * B * (nd + sps), peak_flops=mxu,
-            unit=_mxu_unit(precision), loop_invariant=True),
+                              bytes=8.0 * B * (nd + sps), unit=mm, loop_invariant=True),
         "papr": KernelCost("papr", flops=4.0 * T, bytes=8.0 * T,
-                           peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu", loop_invariant=True),
+                           unit=VECTOR, loop_invariant=True),
         **_jakes_channel_costs(S * sps, num_rx * lanes, num_taps,
                                precision,
                                profile=_bench_profile(config)),
@@ -587,18 +439,15 @@ def simo_frame_cost(config: LTEConfig, num_symbols: int = 14,
         # power pass + counter RNG + fused scale-add
         "awgn_legs": KernelCost(
             "awgn_legs", flops=(3.0 + 2 * 24 + 4) * M,
-            bytes=16.0 * M, peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+            bytes=16.0 * M, unit=VECTOR),
         "rx_dft_data": KernelCost(
             "rx_dft_data", flops=8.0 * num_rx * B * config.N * nd,
-            bytes=8.0 * num_rx * B * (config.N + nd), peak_flops=mxu,
-            unit=_mxu_unit(precision)),
+            bytes=8.0 * num_rx * B * (config.N + nd), unit=mm),
         "rx_dft_pilot": KernelCost(
             "rx_dft_pilot",
             flops=8.0 * num_rx * lanes * n_slots * config.N * n_pil,
             bytes=8.0 * num_rx * lanes * n_slots * (config.N + n_pil),
-            peak_flops=mxu,
-            unit=_mxu_unit(precision)),
+            unit=mm),
         # LS + lerp to data bins (slot-periodic: n_slots estimates
         # broadcast over S) + MRC combine over the antenna axis
         "estimate_mrc": KernelCost(
@@ -606,12 +455,10 @@ def simo_frame_cost(config: LTEConfig, num_symbols: int = 14,
             flops=14.0 * num_rx * lanes * n_slots * nd
             + 16.0 * num_rx * D + 6.0 * D,
             bytes=8.0 * num_rx * D * 2 + 8.0 * D,
-            peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+            unit=VECTOR),
         "qam_demap_count": KernelCost(
             "qam_demap_count", flops=(30.0 + 2.0 * bps) * D,
-            bytes=8.0 * D + 2.0 * bB * bps * D, peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+            bytes=8.0 * D + 2.0 * bB * bps * D, unit=VECTOR),
     }
     return costs
 
@@ -637,105 +484,69 @@ def sfbc_frame_cost(config: LTEConfig, num_symbols: int = 14,
     Nb = num_rx * (D + lanes * n_slots * n_pil)   # noisy bin samples
     bps = config.bits_per_symbol
     bB = bits_dtype_bytes
-    mxu = PEAK_MXU_BY_PRECISION.get(precision, PEAK_F32_FLOPS)
+    mm = PRECISION_UNIT[precision]
     costs = {
         "qam_map_alamouti": KernelCost(
             "qam_map_alamouti", flops=16.0 * D,
-            bytes=bB * bps * D + 8.0 * 2 * D, peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu", loop_invariant=True),
+            bytes=bB * bps * D + 8.0 * 2 * D, unit=VECTOR, loop_invariant=True),
         "tx_idft": KernelCost("tx_idft", flops=8.0 * 2 * B * ne * sps,
                               bytes=8.0 * 2 * B * (ne + sps),
-                              peak_flops=mxu,
-            unit=_mxu_unit(precision), loop_invariant=True),
+                              unit=mm, loop_invariant=True),
         "papr": KernelCost("papr", flops=4.0 * 2 * B * sps,
                            bytes=8.0 * 2 * B * sps,
-                           peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu", loop_invariant=True),
+                           unit=VECTOR, loop_invariant=True),
         **_jakes_channel_costs(S * sps, 2 * num_rx * lanes, num_taps,
                                precision,
                                profile=_bench_profile(config)),
         "bin_noise": KernelCost(
             "bin_noise", flops=(2 * 24 + 4) * Nb + 3.0 * num_rx * B * sps,
             bytes=8.0 * Nb + 8.0 * num_rx * B * sps,
-            peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+            unit=VECTOR),
         "rx_dft_data": KernelCost(
             "rx_dft_data", flops=8.0 * num_rx * B * config.N * ne,
-            bytes=8.0 * num_rx * B * (config.N + ne), peak_flops=mxu,
-            unit=_mxu_unit(precision)),
+            bytes=8.0 * num_rx * B * (config.N + ne), unit=mm),
         "rx_dft_pilot": KernelCost(
             "rx_dft_pilot",
             flops=8.0 * num_rx * lanes * n_slots * config.N * n_pil,
             bytes=8.0 * num_rx * lanes * n_slots * (config.N + n_pil),
-            peak_flops=mxu,
-            unit=_mxu_unit(precision)),
+            unit=mm),
         # per-TX LS+lerp (slot-periodic) + Alamouti pair decode
         "estimate_decode": KernelCost(
             "estimate_decode",
             flops=14.0 * 2 * num_rx * lanes * n_slots * ne + 24.0 * num_rx * D,
             bytes=8.0 * 2 * num_rx * D + 8.0 * D,
-            peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+            unit=VECTOR),
         "qam_demap_count": KernelCost(
             "qam_demap_count", flops=(30.0 + 2.0 * bps) * D,
-            bytes=8.0 * D + 2.0 * bB * bps * D, peak_flops=PEAK_VPU_FLOPS,
-            unit="vpu"),
+            bytes=8.0 * D + 2.0 * bB * bps * D, unit=VECTOR),
     }
     return costs
 
 
 def fir_roofline_report(costs: Dict[str, KernelCost],
-                        measured_step_s: float,
-                        precision: str = "default",
-                        dispatch_floor_s: float = 0.0) -> Dict:
+                        measured_step_s: float, device_kind: str,
+                        precision: str = "default") -> Dict:
     """Roofline fraction for a cost dict (simo_frame_cost /
     sfbc_frame_cost). Reports the channel-FIR kernel family's share
-    separately (BASELINE.md:38 names it explicitly)."""
-    fir_s = sum(c.roofline_time_s() for k, c in costs.items()
+    separately."""
+    peaks = peaks_for(device_kind)
+    fir_s = sum(c.roofline_time_s(peaks) for k, c in costs.items()
                 if k in ("jakes_matmul", "tap_fma"))
-    over_floor = max(measured_step_s - dispatch_floor_s, 1e-9)
-    frac = _fraction_fields(costs, measured_step_s, dispatch_floor_s)
-    return {
-        "precision": precision,
-        "peaks_source": PEAKS_SOURCE,
-        "modeled_gflops": sum(c.flops for c in costs.values()) / 1e9,
-        "modeled_gbytes": sum(c.bytes for c in costs.values()) / 1e9,
-        "channel_fir_roofline_s": fir_s,
-        "measured_s": measured_step_s,
-        "dispatch_floor_s": dispatch_floor_s,
-        **frac,
-        "roofline_fraction_excl_floor":
-        sum(c.roofline_time_s() for c in costs.values()
-            if not c.loop_invariant) / over_floor,
-        "per_kernel_us": {k: round(c.roofline_time_s() * 1e6, 1)
-                          for k, c in costs.items()},
-    }
+    return _report(costs, measured_step_s, precision, device_kind,
+                   channel_fir_roofline_s=fir_s)
 
 
 def roofline_report(config: LTEConfig, num_symbols: int, lanes: int,
-                    measured_step_s: float,
+                    measured_step_s: float, device_kind: str,
                     precision: str = "highest",
                     bits_dtype_bytes: int = 1,
-                    awgn_mode: str = "freq",
-                    dispatch_floor_s: float = 0.0) -> Dict:
+                    awgn_mode: str = "freq") -> Dict:
     costs = siso_frame_cost(config, num_symbols, lanes, precision,
                             bits_dtype_bytes, awgn_mode)
     total_flops = sum(c.flops for c in costs.values())
-    total_bytes = sum(c.bytes for c in costs.values())
-    frac = _fraction_fields(costs, measured_step_s, dispatch_floor_s)
-    return {
-        "precision": precision,
-        "peaks_source": PEAKS_SOURCE,
-        "modeled_gflops": total_flops / 1e9,
-        "modeled_gbytes": total_bytes / 1e9,
-        "measured_s": measured_step_s,
-        "dispatch_floor_s": dispatch_floor_s,
-        **frac,
-        # full-chain flops over the measured step: the AMORTIZED rate the
-        # fixed-codeword harness effectively delivers (hoisted TX included
-        # in the numerator) — a throughput figure, not a unit fraction
-        "effective_amortized_tflops": total_flops / measured_step_s / 1e12
-        if measured_step_s else 0.0,
-        "per_kernel_us": {k: round(c.roofline_time_s() * 1e6, 1)
-                          for k, c in costs.items()},
-    }
+    # full-chain flops over the measured step: the AMORTIZED rate the
+    # fixed-codeword harness effectively delivers (hoisted TX included in
+    # the numerator) — a throughput figure, not a unit fraction
+    return _report(costs, measured_step_s, precision, device_kind,
+                   effective_amortized_tflops=total_flops / measured_step_s
+                   / 1e12 if measured_step_s else 0.0)

@@ -8,8 +8,7 @@ varying. The fix is to declare the init varying over the same axes as the
 data it will absorb — a type-level no-op on the values themselves.
 
 `match_vma(x, ref)` does exactly that, and degrades to identity outside
-shard_map (or on JAX versions without vma typing), so library code can call
-it unconditionally.
+shard_map, so library code can call it unconditionally.
 """
 from __future__ import annotations
 
@@ -23,18 +22,6 @@ def _vma_of(ref):
         return ()
 
 
-def _pcast(x, axes):
-    # jax >= 0.9 spells it pcast(..., to='varying'); pvary is the deprecated
-    # older name — support both.
-    pcast = getattr(jax.lax, "pcast", None)
-    if pcast is not None:
-        try:
-            return pcast(x, axes, to="varying")
-        except TypeError:
-            pass
-    return jax.lax.pvary(x, axes)
-
-
 def match_vma(x, ref):
     """Retype `x` (a pytree of arrays) as varying over the mesh axes that
     `ref` varies over. Identity outside shard_map."""
@@ -45,4 +32,5 @@ def match_vma(x, ref):
     missing = tuple(a for a in axes if a not in have)
     if not missing:
         return x
-    return jax.tree.map(lambda v: _pcast(v, missing), x)
+    return jax.tree.map(
+        lambda v: jax.lax.pcast(v, missing, to="varying"), x)

@@ -99,44 +99,63 @@ def test_chunked_fallback_paths():
         lane_chunked(fn, 4, mode="vmap")
 
 
+# An injected knee table: auto_chunk's geometry is tested against it, not
+# against any measured values.
+KNEES = {"sfbc": (256, "unroll"), "simo": (256, "unroll"),
+         "coded": (128, "scan"), "siso": (None, None)}
+
+
 def test_auto_chunk_policy():
-    """Measured-knee policy (results/cliff_probe.json): unroll x256 for
-    sfbc/simo past the knee, scan x128 for coded, flat for the dense-MXU
-    pipelines, with the knee scaled by per-frame symbol count."""
-    assert auto_chunk("sfbc", 1024) == (256, "unroll")
-    assert auto_chunk("sfbc", 512) == (256, "unroll")
-    assert auto_chunk("simo", 1024) == (256, "unroll")
-    assert auto_chunk("coded", 256) == (128, "scan")
+    """Knee geometry from an injected table: unroll x256 for sfbc/simo
+    past the knee, scan x128 for coded, flat for pipelines without a knee,
+    with the knee scaled by per-frame symbol count."""
+    assert auto_chunk("sfbc", 1024, knees=KNEES) == (256, "unroll")
+    assert auto_chunk("sfbc", 512, knees=KNEES) == (256, "unroll")
+    assert auto_chunk("simo", 1024, knees=KNEES) == (256, "unroll")
+    assert auto_chunk("coded", 256, knees=KNEES) == (128, "scan")
     # at/below the knee: flat
-    assert auto_chunk("sfbc", 256) == (None, None)
-    assert auto_chunk("coded", 128) == (None, None)
-    assert auto_chunk("coded", 8) == (None, None)
-    # 28-symbol frames cost ~2x the measured 14-symbol lanes: knee halves
-    assert auto_chunk("sfbc", 1024, num_ofdm_symbols=28) == (128, "unroll")
+    assert auto_chunk("sfbc", 256, knees=KNEES) == (None, None)
+    assert auto_chunk("coded", 128, knees=KNEES) == (None, None)
+    assert auto_chunk("coded", 8, knees=KNEES) == (None, None)
+    # 28-symbol frames cost ~2x the 14-symbol lanes: knee halves
+    assert auto_chunk("sfbc", 1024, num_ofdm_symbols=28,
+                      knees=KNEES) == (128, "unroll")
     # coded lanes are transport blocks — symbol-count-independent
-    assert auto_chunk("coded", 256, num_ofdm_symbols=28) == (128, "scan")
-    # measured-negative pipelines and unknown names: always flat
-    for p in ("siso", "spatial", "beamforming", "nonesuch"):
-        assert auto_chunk(p, 4096) == (None, None)
+    assert auto_chunk("coded", 256, num_ofdm_symbols=28,
+                      knees=KNEES) == (128, "scan")
+    # knee-less pipelines and unknown names: always flat
+    for p in ("siso", "spatial", "nonesuch"):
+        assert auto_chunk(p, 4096, knees=KNEES) == (None, None)
     # unroll program-bloat cap: 4096/256 = 16 subgraphs -> grow the chunk
     # to the 8-chunk cap instead
-    assert auto_chunk("sfbc", 4096) == (512, "unroll")
+    assert auto_chunk("sfbc", 4096, knees=KNEES) == (512, "unroll")
     # prime-ish lane count: nothing at/below the knee divides -> flat
-    assert auto_chunk("sfbc", 509) == (None, None)
-    assert auto_chunk("sfbc", 0) == (None, None)
+    assert auto_chunk("sfbc", 509, knees=KNEES) == (None, None)
+    assert auto_chunk("sfbc", 0, knees=KNEES) == (None, None)
+
+
+@pytest.mark.parametrize("pipeline", ["siso", "simo", "sfbc", "spatial",
+                                      "coded", "beamforming"])
+def test_auto_chunk_flat_without_measured_knees(pipeline):
+    """No knee has been measured on the card: the default table keeps
+    every pipeline flat at any lane count."""
+    assert auto_chunk(pipeline, 4096) == (None, None)
+    fn = lambda k, b, s: b  # noqa: E731
+    assert auto_lane_chunked(fn, pipeline, 4096) is fn
 
 
 def test_auto_lane_chunked_wrapping():
     fn = lambda k, b, s: b  # noqa: E731
     # flat-policy pipelines return the function unchanged
-    assert auto_lane_chunked(fn, "siso", 4096) is fn
-    assert auto_lane_chunked(fn, "sfbc", 256) is fn
+    assert auto_lane_chunked(fn, "siso", 4096, knees=KNEES) is fn
+    assert auto_lane_chunked(fn, "sfbc", 256, knees=KNEES) is fn
     # past the (symbol-scaled) knee: wraps and still runs correctly.
     # 14*64-symbol frames scale the sfbc knee down to 256*14//896 = 4,
     # so 8 lanes chunk as 2x4 without bench-scale compute.
     cfg = LTEConfig(bandwidth=1.25, modulation="QPSK")
     sim = lambda k, b, s: siso.simulate_siso(k, b, s, cfg)  # noqa: E731
-    wrapped = auto_lane_chunked(sim, "sfbc", 8, num_ofdm_symbols=14 * 64)
+    wrapped = auto_lane_chunked(sim, "sfbc", 8, num_ofdm_symbols=14 * 64,
+                                knees=KNEES)
     assert wrapped is not sim
     n = siso.bits_per_frame(cfg, 14)
     bits = jnp.asarray(np.random.default_rng(7).integers(

@@ -264,7 +264,7 @@ def test_turbo_decode_matches_reference_at_max_K(rng):
 # test_turbo_decode_block_impl_matches_reference_at_max_K in the default run
 @pytest.mark.slow
 def test_turbo_decode_block_impl_parity(K, rng):
-    """'block' (the TPU-default blocked-scan BCJR) vs 'scan' (float-faithful
+    """'block' (the GPU-default blocked-scan BCJR) vs 'scan' (float-faithful
     sequential kernel): LLRs agree to float-reassociation tolerance and hard
     outputs are identical on a real noisy codeword, in both semirings. The
     CPU default is 'scan', so the block kernel needs explicit coverage.
@@ -299,7 +299,7 @@ def test_turbo_decode_block_impl_parity(K, rng):
 
 def test_turbo_decode_block_impl_matches_reference_at_max_K(rng):
     """Hard-output parity of the 'block' kernel against the reference
-    decoder at K=6144 (max-log, 2 iterations) — the TPU default path must
+    decoder at K=6144 (max-log, 2 iterations) — the GPU default path must
     hold the same reference-parity claim as 'scan'/'assoc' (PARITY.md)."""
     from core.channel_coding import turbo_decoder as ref_td
     K = 6144

@@ -1,5 +1,6 @@
 """Complex-as-real arithmetic core, incl. closed-form small solves."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
@@ -29,7 +30,7 @@ def test_matmul(rng):
 
 
 def test_matmul_small_matches_matmul(rng):
-    """VPU broadcast-FMA form vs dot_general, incl. broadcast leading dims."""
+    """Elementwise broadcast-FMA form vs dot_general, incl. broadcast leading dims."""
     a = rng.standard_normal((5, 7, 2, 3)) + 1j * rng.standard_normal((5, 7, 2, 3))
     b = rng.standard_normal((5, 7, 3, 4)) + 1j * rng.standard_normal((5, 7, 3, 4))
     got = cplx.matmul_small(cplx.from_numpy(a), cplx.from_numpy(b)).to_numpy()
@@ -65,3 +66,17 @@ def test_pytree_compatible():
     doubled = jax.jit(lambda x: x * 2.0)(c)
     assert isinstance(doubled, C)
     np.testing.assert_allclose(doubled.to_numpy(), np.full(4, 2.0 + 0j))
+
+
+def test_matmul_gauss_matches_4mult(rng):
+    """3-multiply Gauss form vs the 4-multiply expansion (cplx.matmul)."""
+    a = C(jnp.asarray(rng.standard_normal((128, 300)), jnp.float32),
+          jnp.asarray(rng.standard_normal((128, 300)), jnp.float32))
+    b = C(jnp.asarray(rng.standard_normal((300, 96)), jnp.float32),
+          jnp.asarray(rng.standard_normal((300, 96)), jnp.float32))
+    ref = cplx.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+    out = cplx.matmul_gauss(a, b, precision=jax.lax.Precision.HIGHEST)
+    np.testing.assert_allclose(np.asarray(out.re), np.asarray(ref.re),
+                               rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(np.asarray(out.im), np.asarray(ref.im),
+                               rtol=1e-5, atol=1e-3)

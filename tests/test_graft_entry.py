@@ -26,8 +26,7 @@ def test_entry_compiles_and_runs():
     assert np.all(papr > 3.0)
 
 
-# slow lane: the driver itself executes dryrun_multichip every round
-# (MULTICHIP_r* artifacts)
+# slow lane: `chip_smoke.py --multi` runs dryrun_multichip on four GPUs
 @pytest.mark.slow
 def test_dryrun_multichip_8():
     mod = _load()

@@ -98,3 +98,56 @@ def test_papr_per_symbol_no_cp(rng):
     # no-CP window is a subset: its peak can only drop, its mean shifts;
     # both stay finite and positive for noise-like signals
     assert np.all(np.asarray(p_cp) > 0) and np.all(np.asarray(p_nocp) > 0)
+
+
+def test_modem_cmatmul_backend_gauss(rng, monkeypatch):
+    """End-to-end modem parity with OFDM_LTE_TPU_CMATMUL=gauss."""
+    from ofdm_lte_tpu.cplx import C
+    cfg = LTEConfig(bandwidth=1.25, modulation="QPSK")
+    nd = grid_for(cfg).num_data
+    data = C(jnp.asarray(rng.standard_normal((4, 3, nd)), jnp.float32),
+             jnp.asarray(rng.standard_normal((4, 3, nd)), jnp.float32))
+    ref = ofdm.modulate_symbols(data, cfg)
+    monkeypatch.setenv("OFDM_LTE_TPU_CMATMUL", "gauss")
+    out = ofdm.modulate_symbols(data, cfg)
+    np.testing.assert_allclose(np.asarray(out.re), np.asarray(ref.re),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(out.im), np.asarray(ref.im),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_modem_cmatmul_backend_unknown_raises(monkeypatch):
+    from ofdm_lte_tpu.cplx import C
+    cfg = LTEConfig(bandwidth=1.25, modulation="QPSK")
+    nd = grid_for(cfg).num_data
+    z = jnp.zeros((2, nd), jnp.float32)
+    monkeypatch.setenv("OFDM_LTE_TPU_CMATMUL", "pallas")
+    with pytest.raises(ValueError, match="xla4"):
+        ofdm.modulate_symbols(C(z, z), cfg)
+
+
+def test_modem_matches_float64_fft_reference():
+    """The reference check chip_smoke.py runs at 20 MHz: modulate and
+    demodulate against numpy.fft in float64, at 1.25 MHz on the CPU
+    (plain float32 at every precision setting here)."""
+    from ofdm_lte_tpu.ops.ofdm_reference import modem_errors
+    cfg = LTEConfig(bandwidth=1.25, modulation="64-QAM")
+    r = modem_errors(cfg, 4 * 14, seed=3)
+    assert r["modulate"] < 1e-5 and r["demodulate"] < 1e-5, r
+    # the output holds both float32 planes of the CP-prefixed waveform
+    assert r["modulate_memory"].output_size_in_bytes >= 4 * 14 * (
+        cfg.N + cfg.cp_length) * 4 * 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision,limit", [("highest", 1e-5),
+                                             ("default", 3e-3)])
+def test_modem_reference_error_on_gpu(gpu, precision, limit, monkeypatch):
+    """On the card `default` runs float32 dots in TF32: the modem's error
+    against float64 stays within the TF32 bound at 20 MHz."""
+    from ofdm_lte_tpu.ops.ofdm_reference import modem_errors
+    monkeypatch.setenv("OFDM_LTE_TPU_MATMUL_PRECISION", precision)
+    jax.clear_caches()
+    r = modem_errors(LTEConfig(bandwidth=20.0, modulation="64-QAM"), 3584,
+                     device=gpu)
+    assert r["modulate"] <= limit and r["demodulate"] <= limit, r

@@ -137,7 +137,7 @@ def test_pilot_snr_tracks_channel_snr():
 
 def test_bits_dtype_follows_input():
     """Sims return bits_rx in the caller's bit dtype (int8 inputs keep the
-    whole bit-domain HBM path at 1 B/bit on TPU) with identical results."""
+    whole bit-domain path at 1 B/bit in device memory) with identical results."""
     import jax
     import jax.numpy as jnp
     from ofdm_lte_tpu import LTEConfig

@@ -13,12 +13,12 @@ bench's crc_pass_fraction@5dB can be judged in-family against the
 reference's own pass rate.
 
 Writes tools/coded_waterfall.json incrementally. "ours"/"reference" force
-the CPU backend in-process ('scan' BCJR, ensemble arbiter); "tpu" runs the
-same ensemble on the real chip with the TPU-default 'block' BCJR kernel —
-the VERDICT r2 task-6 validation that the blocked-scan decomposition's
-float reassociation does not move the waterfall (compare the tpu_maxlog
-rows against ours_maxlog within binomial bounds). Usage:
-    python tools/coded_waterfall.py [ours|reference|both|tpu] [tbs] [tbs_ref]
+the CPU backend in-process ('scan' BCJR, ensemble arbiter); "gpu" runs the
+same ensemble on the GPU with its default 'block' BCJR kernel — the check
+that the blocked-scan decomposition's float reassociation does not move
+the waterfall (compare the gpu_maxlog rows against ours_maxlog within
+binomial bounds); it exits nonzero without a GPU. Usage:
+    python tools/coded_waterfall.py [ours|reference|both|gpu] [tbs] [tbs_ref]
 """
 import contextlib
 import io
@@ -32,17 +32,12 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-if (sys.argv[1:2] or ["both"])[0] != "tpu":
+if (sys.argv[1:2] or ["both"])[0] != "gpu":
     jax.config.update("jax_platforms", "cpu")
-else:
-    _CACHE = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), ".jax_cache")
-    jax.config.update("jax_compilation_cache_dir", _CACHE)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 import jax.numpy as jnp                                  # noqa: E402
 
 SNRS = [3.0, 3.5, 4.0, 4.5, 5.0, 5.5, 6.0, 7.0]
-SNRS_TPU = [2.5, 3.0, 3.25, 3.5, 4.0, 5.0]
+SNRS_GPU = [2.5, 3.0, 3.25, 3.5, 4.0, 5.0]
 TB_BITS = 6000
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                    "coded_waterfall.json")
@@ -55,18 +50,18 @@ def save():
         json.dump(results, f, indent=2)
 
 
-def ours(n_tbs=64, tpu=False):
+def ours(n_tbs=64, gpu=False):
     from ofdm_lte_tpu import LTEConfig
     from ofdm_lte_tpu.sim import coded
 
     cfg = LTEConfig(bandwidth=5.0, modulation="QPSK")
     rng = np.random.default_rng(0)
     bits = jnp.asarray(rng.integers(0, 2, (n_tbs, TB_BITS)).astype(np.int32))
-    modes = ([("tpu_maxlog", True)] if tpu
+    modes = ([("gpu_maxlog", True)] if gpu
              else [("ours_maxlog", True), ("ours_logmap", False)])
     for mode, uml in modes:
         entry = results.setdefault(mode, {})
-        for snr in (SNRS_TPU if tpu else SNRS):
+        for snr in (SNRS_GPU if gpu else SNRS):
             k = f"{snr:g}"
             if k in entry:
                 continue
@@ -123,9 +118,10 @@ if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "both"
     n_ours = int(sys.argv[2]) if len(sys.argv) > 2 else 64
     n_ref = int(sys.argv[3]) if len(sys.argv) > 3 else 16
-    if which == "tpu":
-        assert jax.default_backend() != "cpu", "tpu mode needs the chip"
-        ours(n_ours, tpu=True)
+    if which == "gpu":
+        from ofdm_lte_tpu.utils.device import require_gpu
+        require_gpu()
+        ours(n_ours, gpu=True)
     if which in ("ours", "both"):
         ours(n_ours)
     if which in ("reference", "both"):

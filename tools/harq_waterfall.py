@@ -10,11 +10,12 @@ must shift left by >=1 dB per added transmission (VERDICT r2 task 4's
 "done" gate).
 
 CPU-only by default (forces the CPU backend in-process, ensemble mode);
-`tpu` mode runs a spot-check batch on the real chip instead (same program,
-'block' BCJR). Writes tools/harq_waterfall.json incrementally.
+`gpu` mode runs a spot-check batch on the GPU instead (same program,
+'block' BCJR) and exits nonzero without one. Writes
+tools/harq_waterfall.json incrementally.
 
 Usage:
-    python tools/harq_waterfall.py [cpu|tpu] [tbs_per_point]
+    python tools/harq_waterfall.py [cpu|gpu] [tbs_per_point]
 """
 import json
 import os
@@ -29,7 +30,7 @@ TB_BITS = 6000
 RV_SEQ = (0, 1, 2, 3)
 SNRS_CPU = [-4.0, -3.0, -2.5, -2.0, -1.5, -1.0, -0.5, 0.0, 0.5, 1.0,
             1.5, 2.0, 2.5, 3.0, 3.5, 4.0, 4.5]
-SNRS_TPU = [-2.0, 0.0, 2.0, 3.5]
+SNRS_GPU = [-2.0, 0.0, 2.0, 3.5]
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                    "harq_waterfall.json")
 
@@ -50,10 +51,8 @@ def run(mode="cpu", n_tbs=64):
     if mode == "cpu":
         jax.config.update("jax_platforms", "cpu")
     else:
-        cache = os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), ".jax_cache")
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+        from ofdm_lte_tpu.utils.device import require_gpu
+        require_gpu()
     import jax.numpy as jnp
     from ofdm_lte_tpu import LTEConfig
     from ofdm_lte_tpu.sim import coded
@@ -64,7 +63,7 @@ def run(mode="cpu", n_tbs=64):
     cfg = LTEConfig(bandwidth=5.0, modulation="QPSK")
     rng = np.random.default_rng(0)
     bits = jnp.asarray(rng.integers(0, 2, (n_tbs, TB_BITS)).astype(np.int32))
-    snrs = SNRS_CPU if mode == "cpu" else SNRS_TPU
+    snrs = SNRS_CPU if mode == "cpu" else SNRS_GPU
 
     for snr in snrs:
         k = f"{snr:g}"
